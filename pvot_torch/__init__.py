@@ -2,7 +2,8 @@
 
 Imports torch and never JAX or the `pvot` package.  Importing it builds and
 loads no kernel: the CUDA sources in pvot_torch/csrc build at their first
-launch (pvot_torch.ops._build).
+launch (pvot_torch.ops._build).  The serving entry points load lazily, as
+pvot/__init__.py:31-64 does.
 """
 
 from pvot_torch.config import TrackerConfig
@@ -17,4 +18,23 @@ __all__ = [
     "init_state",
     "track_video",
     "track_video_mega",
+    "track_streams_mega",
+    "serve_streams",
+    "serve_streams_grouped",
 ]
+
+
+def __getattr__(name):  # lazy heavyweight entry points
+    if name == "track_streams_mega":
+        from pvot_torch.tracker.mega import track_streams_mega
+
+        return track_streams_mega
+    if name == "serve_streams":
+        from pvot_torch.io.serving import serve_streams
+
+        return serve_streams
+    if name == "serve_streams_grouped":
+        from pvot_torch.io.serving import serve_streams_grouped
+
+        return serve_streams_grouped
+    raise AttributeError(f"module 'pvot_torch' has no attribute {name!r}")

@@ -51,13 +51,14 @@ def bench_clip(num_frames: int = 2048, width: int = 1280, height: int = 720,
     return spec, generate_gray_video(spec)
 
 
-def initial_state(spec, frame0: np.ndarray, device):
+def state_at(spec, frames: np.ndarray, i: int, device):
+    """Initial state from the ground-truth box at clip frame i."""
     from pvot_torch.io.gray import gray_u8_to_f32
     from pvot_torch.io.synthetic import target_bbox
     from pvot_torch.tracker.state import init_state
 
-    x, y, w, h = target_bbox(spec, 0)
-    return init_state(gray_u8_to_f32(frame0)[y : y + h, x : x + w], (x, y, w, h),
+    x, y, w, h = target_bbox(spec, i)
+    return init_state(gray_u8_to_f32(frames[i])[y : y + h, x : x + w], (x, y, w, h),
                       device=device)
 
 
@@ -81,7 +82,7 @@ def run_bench(num_frames: int = 2048, chunk_size: int = 512, passes: int = 5,
     dev = torch.device("cuda", 0)
     spec, frames = clip if clip is not None else bench_clip(num_frames)
     config = TrackerConfig()
-    state = initial_state(spec, frames[0], dev)
+    state = state_at(spec, frames, 0, dev)
     staged = torch.from_numpy(frames[1 : 1 + num_frames]).to(dev)
     torch.cuda.synchronize()
 
@@ -122,13 +123,138 @@ def run_bench(num_frames: int = 2048, chunk_size: int = 512, passes: int = 5,
     }
 
 
-def main() -> None:
+def stream_cuts(n_streams: int, total: int, lengths) -> list:
+    """Offsets of S streams cut from one clip of `total` frames: stream s
+    starts at clip frame offsets[s] (its template frame) and tracks
+    lengths[s] frames after it; the offsets spread evenly over the clip."""
+    spare = total - 1 - max(lengths)
+    if spare < 0:
+        raise ValueError(f"streams of {max(lengths)} frames do not fit a {total}-frame clip")
+    step = spare // max(1, n_streams - 1)
+    return [s * step for s in range(n_streams)]
+
+
+def stream_states(spec, frames: np.ndarray, offsets, device):
+    """Stacked initial state: stream s from its ground-truth box at frame offsets[s]."""
+    from pvot_torch.parallel.multi import stack_states
+
+    return stack_states([state_at(spec, frames, o, device) for o in offsets])
+
+
+def stream_err_px(spec, offset: int, bbox: np.ndarray) -> int:
+    """max_l1_err_px of one stream cut at `offset` (bbox[i] is clip frame
+    offset + i + 1)."""
+    from pvot_torch.io.synthetic import target_bbox
+
+    truth = np.array([target_bbox(spec, offset + i + 1)[:2] for i in range(len(bbox))])
+    return int(np.abs(bbox[:, :2] - truth).sum(axis=1).max(initial=0))
+
+
+def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
+                      passes: int = 3, serve_chunk: int = 64, clip=None) -> dict:
+    """S streams of `length` frames cut at spread offsets from the bench clip
+    (no second clip is generated), each from its ground-truth box.
+
+    Device path: track_streams_mega over the streams staged on the card (a
+    strided view of the one staged clip), checked once with the launch
+    counter at 0, then `passes` runs timed with CUDA events (median).
+    Serving path: serve_streams from the host clip through the decode
+    threads, pinned staging and the copy stream, timed on the host clock
+    (it ends when the last records are read)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("pvot_torch.bench needs a CUDA device")
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.io.serving import serve_streams
+    from pvot_torch.ops.ncc_mega import mega_track_chunk_multi
+    from pvot_torch.tracker.mega import track_streams_mega
+
+    dev = torch.device("cuda", 0)
+    spec, frames = clip if clip is not None else bench_clip()
+    config = TrackerConfig()
+    total, h, w = frames.shape
+    offsets = stream_cuts(n_streams, total, [length] * n_streams)
+    states = stream_states(spec, frames, offsets, dev)
+    staged = torch.from_numpy(frames).to(dev)
+    px = h * w
+    videos = staged.as_strided((n_streams, length, h, w),
+                               (px * (offsets[1] - offsets[0]) if n_streams > 1 else 0, px, w, 1),
+                               px * (offsets[0] + 1))
+    torch.cuda.synchronize()
+
+    mega_track_chunk_multi.launches = 0
+    _, out = track_streams_mega(videos, states, config, chunk_size=chunk_size)
+    launches = mega_track_chunk_multi.launches
+    errs = [stream_err_px(spec, o, out.bbox[:, s]) for s, o in enumerate(offsets)]
+    times_ms = []
+    for _ in range(passes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, again = track_streams_mega(videos, states, config, chunk_size=chunk_size)
+        end.record()
+        end.synchronize()
+        times_ms.append(start.elapsed_time(end))
+        if not np.array_equal(again.bbox, out.bbox):
+            raise RuntimeError("a timed run's trajectories differ from the checked run's")
+    med = statistics.median(times_ms)
+
+    timings: list = []
     t0 = time.perf_counter()
-    result = run_bench()
+    _, served = serve_streams([iter(frames[o + 1 : o + 1 + length]) for o in offsets],
+                              states, (h, w), config, chunk_size=serve_chunk, timings=timings)
+    serve_s = time.perf_counter() - t0
+    serve_errs = [stream_err_px(spec, o, served[s].bbox) for s, o in enumerate(offsets)]
+    if any(not np.array_equal(served[s].bbox, out.bbox[:, s]) for s in range(n_streams)):
+        raise RuntimeError("serve_streams and track_streams_mega disagree")
+    gpu, watts = gpu_identity()
+    frames_all = n_streams * length
+    return {
+        "metric": f"tracked_fps_720p_80px_{n_streams}streams",
+        "value": frames_all / (med / 1000.0),
+        "unit": "frames/s, all streams",
+        "per_stream_fps": length / (med / 1000.0),
+        "run_ms_median": med,
+        "run_ms_all": times_ms,
+        "streams": n_streams,
+        "frames_per_stream": length,
+        "offsets": offsets,
+        "chunk_size": chunk_size,
+        "max_l1_err_px": max(errs),
+        "kernel_launches": launches,
+        "serve_fps": frames_all / serve_s,
+        "serve_per_stream_fps": length / serve_s,
+        "serve_s": serve_s,
+        "serve_chunk": serve_chunk,
+        "serve_chunks": len(timings),
+        "serve_max_l1_err_px": max(serve_errs),
+        "tier": "f32",
+        "gpu": torch.cuda.get_device_name(0),
+        "gpu_smi": gpu,
+        "power_limit_w": watts,
+    }
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m pvot_torch.bench", description=__doc__)
+    p.add_argument("--streams", type=int, default=0, metavar="S",
+                   help="also track S streams together and print their aggregate line")
+    args = p.parse_args(argv)
+    t0 = time.perf_counter()
+    clip = bench_clip()
+    result = run_bench(clip=clip)
     result["wall_s"] = time.perf_counter() - t0
     print(json.dumps(result))
     if result["max_l1_err_px"] != 0:
         raise SystemExit("tracked trajectory is off the ground truth")
+    if args.streams > 0:
+        t0 = time.perf_counter()
+        multi = run_bench_streams(args.streams, clip=clip)
+        multi["wall_s"] = time.perf_counter() - t0
+        print(json.dumps(multi))
+        if multi["max_l1_err_px"] != 0 or multi["serve_max_l1_err_px"] != 0:
+            raise SystemExit("a tracked stream is off the ground truth")
 
 
 if __name__ == "__main__":

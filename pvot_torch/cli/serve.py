@@ -1,0 +1,337 @@
+"""pvot-torch-serve: track S video streams concurrently on one card (the port
+of pvot/cli/serve.py, its stream modes).
+
+Drives pvot_torch.io.serving.serve_streams: one decode thread per stream,
+every chunk of every stream through the multi-stream CUDA kernel, global
+search on the card.  Headless: ROIs come from --roi, one shared by all
+streams or one per stream, or default to each synthetic stream's known
+target.  Homogeneous inputs (one frame size, one ROI size) serve through the
+stacked layout (pvot_torch.parallel.multi.init_multi_state); mixed frame or
+ROI sizes serve through geometry groups (serve_streams_grouped).
+
+What the JAX front end has and the port not yet exits with code 2 and names
+its ROADMAP item: several --roi over one stream (objects mode, A9), --fast
+and --score-passes (A6), --devices (A12), --scan-backend (A10).  Video files
+need OpenCV, which the card's machine does not have: there, serve
+--synthetic streams.
+
+Examples:
+  pvot-torch-serve cam0.mp4 cam1.mp4 cam2.mp4 --roi 600,320,80,80
+  pvot-torch-serve --synthetic 1280x720x300 --streams 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+# Options of pvot-serve that the port does not have yet, and their ROADMAP item.
+_NOT_PORTED = {
+    "--fast": "the fast score tiers (ROADMAP A6)",
+    "--score-passes": "the fast score tiers (ROADMAP A6)",
+    "--devices": "serving across cards (ROADMAP A12)",
+    "--scan-backend": "the scan engines (ROADMAP A10)",
+}
+
+
+def parse_args(argv: List[str]):
+    p = argparse.ArgumentParser(
+        prog="pvot-torch-serve",
+        description="Serve S video streams on one card (multi-stream CUDA kernel)",
+    )
+    p.add_argument("videos", nargs="*", help="one video path per stream")
+    p.add_argument(
+        "--synthetic", metavar="WxHxF", default=None,
+        help="synthetic streams (distinct trajectories) instead of files",
+    )
+    p.add_argument(
+        "--streams", type=int, default=4,
+        help="stream count with --synthetic (files set it by count)",
+    )
+    p.add_argument(
+        "--roi", action="append", default=None, metavar="X,Y,W,H",
+        help="template box; give once (shared) or once per stream. "
+             "Defaults to each synthetic stream's known target",
+    )
+    p.add_argument("--chunk-size", type=int, default=32)
+    p.add_argument(
+        "--pipeline-depth", type=int, default=2,
+        help="chunks in flight before the oldest one's records are read "
+             "(1 = synchronous)",
+    )
+    p.add_argument("--search-radius", type=int, default=None)
+    p.add_argument("--max-frames", type=int, default=0)
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device to serve on (cpu runs the kernels' plain versions)",
+    )
+    p.add_argument(
+        "--trajectory-out", default=None, metavar="PREFIX",
+        help="write per-stream JSON-lines trajectories to PREFIX.s<K>.jsonl",
+    )
+    p.add_argument(
+        "--checkpoint-out", default=None,
+        help="save the final stacked tracker states (all streams, one .npz)",
+    )
+    p.add_argument(
+        "--resume", default=None,
+        help="resume every stream from a stacked-state .npz "
+             "(saved by --checkpoint-out) instead of --roi templates; "
+             "frames then start at each stream's current position",
+    )
+    for flag, what in _NOT_PORTED.items():
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=f"not ported yet: {what}")
+    args = p.parse_args(argv)
+    if not args.videos and not args.synthetic:
+        p.error("give video paths or --synthetic WxHxF")
+    if args.videos and args.synthetic:
+        p.error("--synthetic and video paths are mutually exclusive")
+    return args
+
+
+def _parse_roi(text: str):
+    try:
+        x, y, w, h = (int(v) for v in text.split(","))
+    except ValueError:
+        raise SystemExit(f"Invalid --roi {text!r}: expected X,Y,W,H")
+    if w <= 0 or h <= 0:
+        raise SystemExit(f"Invalid --roi {text!r}: W and H must be positive")
+    return x, y, w, h
+
+
+def _limit(it, n: int):
+    if n <= 0:
+        yield from it
+        return
+    for i, frame in enumerate(it):
+        if i >= n:
+            return
+        yield frame
+
+
+def _config(args):
+    from pvot_torch.config import TrackerConfig
+
+    radius = ({"search_radius_x": args.search_radius, "search_radius_y": args.search_radius}
+              if args.search_radius is not None else {})
+    return TrackerConfig(**radius).validate()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(list(sys.argv[1:] if argv is None else argv))
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            print(f"{flag}: {what} is not ported to pvot_torch yet", file=sys.stderr)
+            return 2
+    if args.resume and args.roi:
+        print("--roi and --resume are mutually exclusive: templates and "
+              "boxes come from the checkpoint", file=sys.stderr)
+        return 2
+
+    from pvot_torch.io.gray import bgr_to_gray_u8, gray_u8_to_f32
+
+    closers = []
+
+    def _fail(msg: str) -> int:
+        # Error exit after decoders may be open: close them, don't leak.
+        for c in closers:
+            c.close()
+        print(msg, file=sys.stderr)
+        return 2
+
+    if args.synthetic:
+        from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_frames, target_bbox
+
+        try:
+            w, h, f = (int(v) for v in args.synthetic.lower().split("x"))
+        except ValueError:
+            return _fail(f"Invalid --synthetic {args.synthetic!r}: expected WxHxF")
+        specs = [SyntheticSpec(width=w, height=h, num_frames=f, seed=1 + s)
+                 for s in range(args.streams)]
+        firsts, feeds, default_rois = [], [], []
+        for spec in specs:
+            gen = generate_gray_frames(spec)
+            if not args.resume:  # frame 0 seeds the template
+                firsts.append(next(gen))
+                default_rois.append(target_bbox(spec, 0))
+            feeds.append(_limit(gen, args.max_frames))
+        frame_shapes = [(h, w)] * len(feeds)
+    else:
+        from pvot_torch.io.video import VideoReader
+
+        readers = []
+        for path in args.videos:
+            try:
+                readers.append(VideoReader(path))
+                closers.append(readers[-1])
+            except (IOError, RuntimeError) as e:
+                return _fail(f"Cannot open video {path!r}: {e}")
+        frame_shapes = [(r.size[1], r.size[0]) for r in readers]
+        firsts, feeds, default_rois = [], [], []
+        for r in readers:
+            if not args.resume:  # frame 0 seeds the template
+                first = r.read()
+                if first is None:
+                    return _fail(f"Empty video: {r.path}")
+                firsts.append(bgr_to_gray_u8(first))
+                default_rois.append(None)
+            feeds.append(_limit(iter(r), args.max_frames))
+    n_streams = len(feeds)
+
+    if args.resume:
+        from pvot_torch.utils.checkpoint import load_state
+
+        per_stream = [f"{args.resume}.s{s}.npz" for s in range(n_streams)]
+        try:
+            if all(os.path.exists(p) for p in per_stream):
+                # Heterogeneous checkpoints are one file per stream.
+                states_list = [load_state(p) for p in per_stream]
+                return _run_serving_grouped(args, feeds, states_list, frame_shapes, closers)
+            states = load_state(args.resume)
+        except (OSError, ValueError, KeyError) as e:
+            return _fail(f"Cannot resume from {args.resume!r}: {e}")
+        if states.t_mean.ndim == 0:
+            # A single-stream checkpoint: serve it as a one-stream stacked state.
+            from pvot_torch.parallel.multi import stack_states
+
+            states = stack_states([states])
+        saved = int(states.t_mean.shape[0])
+        if saved != n_streams:
+            return _fail(f"--resume checkpoint holds {saved} stream states for "
+                         f"{n_streams} streams")
+        if len(set(frame_shapes)) > 1:
+            return _fail("--resume of one stacked checkpoint needs one frame size")
+        return _run_serving(args, feeds, states, frame_shapes[0], closers)
+
+    if args.roi:
+        try:
+            rois = [_parse_roi(t) for t in args.roi]
+        except SystemExit as e:  # invalid --roi after decoders opened
+            return _fail(str(e))
+        if n_streams == 1 and len(rois) > 1:
+            return _fail(f"{len(rois)} --roi over one stream is multi-object serving, "
+                         "which is not ported to pvot_torch yet (ROADMAP A9)")
+        if len(rois) == 1:
+            rois = rois * n_streams
+        elif len(rois) != n_streams:
+            return _fail(f"Got {len(rois)} --roi for {n_streams} streams "
+                         "(give one, or one per stream)")
+    elif all(r is not None for r in default_rois):
+        rois = default_rois
+    else:
+        return _fail("File streams need --roi (serving is headless)")
+
+    for s, (x, y, rw, rh) in enumerate(rois):
+        fh, fw = frame_shapes[s]
+        if x < 0 or y < 0 or x + rw > fw or y + rh > fh:
+            return _fail(f"--roi {x},{y},{rw},{rh} (stream {s}) lies outside the "
+                         f"{fw}x{fh} frame")
+    templates = [gray_u8_to_f32(first)[y : y + rh, x : x + rw]
+                 for first, (x, y, rw, rh) in zip(firsts, rois)]
+    if len({(rw, rh) for _, _, rw, rh in rois}) > 1 or len(set(frame_shapes)) > 1:
+        from pvot_torch.tracker.state import init_state
+
+        states_list = [init_state(t, r) for t, r in zip(templates, rois)]
+        return _run_serving_grouped(args, feeds, states_list, frame_shapes, closers)
+    from pvot_torch.parallel.multi import init_multi_state
+
+    return _run_serving(args, feeds, init_multi_state(templates, rois), frame_shapes[0],
+                        closers)
+
+
+def _report(outs, elapsed: float) -> None:
+    total = 0
+    for s, out in enumerate(outs):
+        n = out.bbox.shape[0]
+        total += n
+        score = float(np.mean(out.score)) if n else float("nan")
+        print(f"stream {s}: frames={n}, updated={int(out.updated.sum())}, "
+              f"global={int(out.used_global.sum())}, mean_score={score:.4f}, "
+              f"final_bbox={out.bbox[-1].tolist() if n else None}")
+    fps = total / elapsed if elapsed > 0 else 0.0
+    # Aggregate summary in the reference's summary spelling (main.cpp:485-488)
+    # extended with the stream count.
+    print(f"Serving summary: streams={len(outs)}, frames={total}, "
+          f"time={elapsed:.6g} s, aggregate FPS={fps:.6g}")
+
+
+def _write_trajectories(prefix: str, outs) -> None:
+    for s, out in enumerate(outs):
+        with open(f"{prefix}.s{s}.jsonl", "w") as f:
+            for i in range(out.bbox.shape[0]):
+                f.write(json.dumps({
+                    "stream": s,
+                    "frame": 1 + i,
+                    "bbox": np.asarray(out.bbox[i]).tolist(),
+                    "score": round(float(out.score[i]), 6),
+                    "used_global": bool(out.used_global[i]),
+                    "updated": bool(out.updated[i]),
+                }) + "\n")
+    print(f"Trajectories written: {prefix}.s*.jsonl")
+
+
+def _run_serving(args, feeds, states, frame_shape, closers) -> int:
+    from pvot_torch.io.serving import serve_streams
+    from pvot_torch.utils.checkpoint import save_state
+
+    th, tw = states.template.shape[-2:]
+    print(f"Serving {len(feeds)} streams at {frame_shape[1]}x{frame_shape[0]}, "
+          f"template {tw}x{th}, chunk {args.chunk_size}, device {args.device}")
+    t0 = time.perf_counter()
+    try:
+        final, outs = serve_streams(
+            feeds, states, frame_shape, _config(args), chunk_size=args.chunk_size,
+            pipeline_depth=args.pipeline_depth, devices=[args.device],
+        )
+        elapsed = time.perf_counter() - t0
+    finally:  # decoder handles must not leak if a stream raises mid-serve
+        for c in closers:
+            c.close()
+    _report(outs, elapsed)
+    if args.trajectory_out:
+        _write_trajectories(args.trajectory_out, outs)
+    if args.checkpoint_out:
+        path = save_state(args.checkpoint_out, final)
+        print(f"Checkpoint saved: {path} ({len(feeds)} stream states)")
+    return 0
+
+
+def _run_serving_grouped(args, feeds, states_list, frame_shapes, closers) -> int:
+    from pvot_torch.io.serving import serve_streams_grouped
+    from pvot_torch.utils.checkpoint import save_state
+
+    shapes = sorted({(fs, tuple(st.template.shape)) for fs, st in zip(frame_shapes, states_list)})
+    groups = ", ".join(f"{fw}x{fh}/t{tw}x{th}" for (fh, fw), (th, tw) in shapes)
+    print(f"Serving {len(feeds)} streams in {len(shapes)} geometry groups ({groups}), "
+          f"chunk {args.chunk_size}, device {args.device}")
+    t0 = time.perf_counter()
+    try:
+        finals, outs = serve_streams_grouped(
+            feeds, states_list, frame_shapes, _config(args), chunk_size=args.chunk_size,
+            pipeline_depth=args.pipeline_depth, devices=[args.device],
+        )
+        elapsed = time.perf_counter() - t0
+    finally:
+        for c in closers:
+            c.close()
+    _report(outs, elapsed)
+    if args.trajectory_out:
+        _write_trajectories(args.trajectory_out, outs)
+    if args.checkpoint_out:
+        # One file per stream: heterogeneous states cannot stack.
+        for s, final in enumerate(finals):
+            save_state(f"{args.checkpoint_out}.s{s}.npz", final)
+        print(f"Checkpoints saved: {args.checkpoint_out}.s<K>.npz ({len(feeds)} "
+              f"per-stream states; resume with --resume {args.checkpoint_out})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,7 +4,10 @@ The state is the whole of what carries across frames (there are no learned
 weights): bbox, template, cached template stats, lost counter and the
 sticky global flag.  A JAX TrackerState converts with
 `{k: np.asarray(v) for k, v in jax_state._asdict().items()}`, so both
-packages can start from bit-identical state.
+packages can start from bit-identical state.  Both functions keep the
+arrays' shapes, so a stacked state (leading S axis, as
+pvot.parallel.multi.init_multi_state builds it in JAX and
+pvot_torch.parallel.multi.init_multi_state here) converts the same way.
 """
 
 from __future__ import annotations

@@ -1,55 +1,77 @@
-// Single-stream tracking chunk on Hopper: the port of pvot/ops/ncc_mega.py
-// `_mega_kernel` (:170) with `_scored_frame_body` (:496), `_shear_score_tiles`
-// (:318) and `_lex_better` (:487), entry `mega_track_chunk` (:818), at its f32
-// tier (highest=True, inkernel_global=True, batch=1).
+// Tracking chunks on Hopper, one stream or many: the port of
+// pvot/ops/ncc_mega.py `_mega_kernel` (:170) with `_scored_frame_body` (:496),
+// `_shear_score_tiles` (:318) and `_lex_better` (:487), entries
+// `mega_track_chunk` (:818, K1) and `mega_track_chunk_multi` (:966, K2), at
+// their f32 tier (highest=True, inkernel_global=True, batch=1).
 //
-// What it computes, per frame t of a chunk, in stream order and with the
-// tracker state resident in device memory (the host never waits inside a
-// chunk):
+// Lanes.  The device code is written for S independent lanes (streams): lane
+// s has its own frames (at s * frame_stride), template, state slot, partials
+// and records; K1 is S = 1.  Per frame step t of a chunk, in stream order and
+// with every lane's tracker state resident in device memory (the host never
+// waits inside a chunk):
 //
-//   (a) score_kernel — a fixed grid of blocks (the wrapper passes 2 x the SM
-//       count).  Every block derives the frame's mode and window from the
-//       state (frame_mode below, pvot/ops/ncc_mega.py:541-561), then
-//       grid-strides over 8 x 16 output tiles of either the clamped local
-//       window or, on a global frame, the whole (H-th+1) x (W-tw+1) map, so a
-//       global frame runs across all SMs.  A local frame has too few tiles to
-//       fill the card, so there two blocks share each tile, one half of the
-//       template rows each; the later of the two (an atomic count per tile)
-//       adds the other's partial sums.  A block stages the centered template
-//       (tpl - t_mean; the template lives in device memory with its rows
-//       zero-padded to a multiple of 4 columns) and its u8 input tile,
-//       converted as v * float32(1/255), in shared memory.  Box sums run separably (row
-//       sums over tw columns, then a column of th row sums).  For the
-//       correlation sum(w * (tpl - t_mean)), 16 warps split the template rows;
+//   (a) score_kernel — one launch for all lanes.  Each block derives every
+//       lane's mode and window from its state (frame_mode below,
+//       pvot/ops/ncc_mega.py:541-561), cuts each lane's region (the clamped
+//       local window, or on a global frame the whole (H-th+1) x (W-tw+1) map)
+//       into 8 x 16 output tiles, lays the lanes' tiles end to end (an
+//       exclusive prefix sum in shared memory, built by warp 0) and
+//       grid-strides over the union, so a lane in re-acquisition spreads
+//       over the whole card next to the local lanes.  A one-lane launch
+//       (K1) is its own instantiation (kOne): every thread derives the
+//       lane's work into registers, with no table and no scan.
+//       When the card has blocks to spare, two blocks share each local tile,
+//       one half of the template rows each; the later of the two (an atomic
+//       count per tile) adds the other's partial sums.  A block stages the
+//       centered template (tpl - t_mean; the template lives in device memory
+//       with its rows zero-padded to a multiple of 4 columns) and its u8 input
+//       rows, converted as v * float32(1/255), in shared memory: the whole
+//       template when it fits beside its tile, else chunks of rows within
+//       each half (templates up to 256 x 256); the two cases are two
+//       instantiations of the kernel (kWhole), so a template that fits pays
+//       nothing for the chunk loop.  Box sums run separably (row sums over
+//       tw columns, then a column of row sums over each half, carried across
+//       chunks in the same order as the whole template adds them).  For the
+//       correlation sum(w * (tpl - t_mean)), 16 warps split each half's rows
+//       (half 1's shares in reverse, so a warp's two shares even out; a
+//       chunk runs each warp's share as far as it holds it, so the sums do
+//       not depend on the chunking, which the lane table's size moves);
 //       each thread keeps four neighbouring outputs in registers and reads 4
-//       taps per step as float4; the warps' partials add in a fixed order.  The
+//       taps per step as float4; the warps' partials add in a fixed order,
+//       half 0 then half 1, whether or not two blocks shared the tile.  The
 //       score is (acc - mean * sum_tc) / ((sqrt(max(var, 1e-6)) + 1e-6) *
-//       (t_std + 1e-6) * N).  The block writes its best (value, y, x) under the
-//       lexicographic order (value desc, y asc, x asc) to a partials buffer.
-//       That order is total, so partials fold in any order to the row-major
-//       first-occurrence argmax; no atomics touch the values.
-//   (b) commit_kernel — one block folds the partials, applies the gate
-//       (0.4 local / 0.6 when use_global), the bbox commit, the lost counter
-//       and the use_global reset, runs the 0.7-gated template EMA from the u8
-//       frame at the new bbox, recomputes mean, std (+1e-6) and sum_tc with
-//       block reductions (pvot/ops/ncc_mega.py:769-787), and writes the
-//       frame's 10-lane record and the next state.  Frames t >= n_valid commit nothing (:563-573).
+//       (t_std + 1e-6) * N).  The block writes, for each lane it serves, its
+//       best (value, y, x) under the lexicographic order (value desc, y asc,
+//       x asc) to that lane's partials, or -inf if it scored nothing of the
+//       lane.  The order is total, so partials fold in any order to the
+//       row-major first-occurrence argmax; no atomics touch the values.
+//   (b) commit_kernel — one block per lane folds the lane's partials, applies
+//       the gate (0.4 local / 0.6 when use_global), the bbox commit, the lost
+//       counter and the use_global reset, runs the 0.7-gated template EMA from
+//       the u8 frame at the new bbox, recomputes mean, std (+1e-6) and sum_tc
+//       with block reductions (pvot/ops/ncc_mega.py:769-787), and writes the
+//       frame's 10-field record and the lane's next state.  Frames t >=
+//       n_valid commit nothing (:563-573).  A template of up to 1024 x 20
+//       pixels stays in registers between the EMA and the stats; a larger one
+//       is read back from device memory in the second pass.
 //
 // What bounds it on the H100 at 720p / 80x80 / r=60.  A local frame scores
 // 121 x 121 positions, about 94 M FMA: at the FP32 peak that is a few
-// microseconds, so local frames are latency- and launch-bound: two launches a
-// frame, and inside each a chain of dependent phases (copy, stage, sum,
-// publish, reduce), each a round trip to L2 or a barrier.  A global frame
-// scores 641 x 1201 positions, about 4.9 G FMA, and is bound by FP32 issue
-// and shared-memory loads on all SMs.  Measured times are in PERF.md.  Later
-// work: tensor cores (wgmma, split-precision) for the correlation, TMA
-// staging, one persistent launch per chunk in place of 2F launches, and CUDA
-// graphs.
+// microseconds, so one stream's local frames are latency- and launch-bound:
+// two launches a frame, and inside each a chain of dependent phases (copy,
+// stage, sum, publish, reduce), each a round trip to L2 or a barrier.  S
+// streams share each launch, so S local frames fill the card that one leaves
+// idle.  A global frame scores 641 x 1201 positions, about 4.9 G FMA, and is
+// bound by FP32 issue and shared-memory loads on all SMs.  Measured times are
+// in PERF.md.  Later work: tensor cores (wgmma, split-precision) for the
+// correlation, TMA staging, one persistent launch per chunk in place of 2F
+// launches, and CUDA graphs.
 //
 // Numerics.  The epilogue, the u8 conversion and the EMA use explicit
 // round-to-nearest intrinsics, so nvcc cannot contract them into FMAs that
 // the plain PyTorch version (pvot_torch/ops/ncc_mega.py) does not do; only the
-// sums themselves run in another order.  Build without --use_fast_math.
+// sums themselves run in another order, the same order for every lane count.
+// Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,10 +85,14 @@ constexpr int kRx = 4;                        // outputs per thread along x
 constexpr int kGroupThreads = kTileH * kTileW / kRx;  // 32: one warp, one tile
 constexpr int kSplit = 16;                    // template-row groups
 constexpr int kScoreThreads = kGroupThreads * kSplit;  // 512
+constexpr int kOut = kTileH * kTileW;         // outputs per tile
 constexpr int kCommitThreads = 1024;
-constexpr int kEmaPerThread = 20;             // template pixels <= 1024 * 20
+constexpr int kEmaPerThread = 20;             // template pixels kept in registers
 constexpr int kBig = 1 << 30;
-constexpr int kLanes = 10;                    // record lanes, O_* order
+constexpr int kRecord = 10;                   // record fields, O_* order
+constexpr int kStateI = 8;                    // bx, by, bw, bh, lost, use_global, n_valid, _
+constexpr int kStateF = 4;                    // t_mean, t_std, sum_tc, _
+constexpr int kSmemLimit = 232448;            // dynamic shared memory of one block
 constexpr float kU8Scale = static_cast<float>(1.0 / 255.0);
 constexpr float kEps = static_cast<float>(1e-6);
 constexpr float kVarFloor = static_cast<float>(1e-6);
@@ -80,21 +106,57 @@ __host__ __device__ constexpr int in_stride(int tw4) {
   return kTileW + tw4 + ((16 - (kTileW + tw4) % 32) + 32) % 32;
 }
 
-// Dynamic shared memory of one score block, in bytes (the wrapper's envelope
-// check, pvot_torch/ops/ncc_mega.py MegaGeometry.smem_bytes, mirrors it).
-int score_smem_bytes(int th, int tw) {
-  const int tw4 = round_up4(tw), in_h = kTileH + th - 1, in_w = in_stride(tw4);
-  return static_cast<int>(sizeof(float)) *
-         (th * tw4 + in_h * in_w + 2 * in_h * kTileW + kSplit * kTileH * kTileW);
+// One lane's work in the current frame, in the score block's shared memory.
+struct LaneWork {
+  int ry0, rx0, ry1, rx1;  // inclusive region of map positions
+  int tiles_x, n_tiles;
+  int do_global, split;    // split: 2 when two blocks share each tile
+  int begin, n_items;      // the lane's items in the block's union
+  float t_mean, t_den, sum_tc;  // template stats (t_den = t_std + 1e-6)
+};
+
+// The lane table of a launch with n_lanes lanes; a one-lane launch has none.
+__host__ __device__ constexpr int lane_table_bytes(int n_lanes) {
+  return n_lanes > 1 ? (n_lanes * static_cast<int>(sizeof(LaneWork)) + 15) / 16 * 16 : 0;
+}
+
+// Dynamic shared memory of one score block staging `rows` template rows, in
+// bytes (pvot_torch/ops/ncc_mega.py MegaGeometry.smem_bytes mirrors it):
+// the lane table, the centered template rows, the input rows, their row sums,
+// and for both halves the row groups' partial correlations and the outputs'
+// column sums.
+__host__ __device__ constexpr int score_smem_bytes(int rows, int tw, int n_lanes) {
+  return lane_table_bytes(n_lanes) +
+         static_cast<int>(sizeof(float)) *
+             (rows * round_up4(tw) + (rows + kTileH - 1) * in_stride(round_up4(tw)) +
+              2 * (rows + kTileH - 1) * kTileW + 2 * kSplit * kOut + 4 * kOut);
+}
+
+// Template rows a score block stages at once: all th when they fit, else the
+// fewest equal chunks of the longer half that fit; -1 if none does.
+int stage_rows(int th, int tw, int n_lanes) {
+  if (score_smem_bytes(th, tw, n_lanes) <= kSmemLimit) return th;
+  const int half = th - th / 2;
+  for (int n = 1; n <= half; ++n) {
+    const int ck = (half + n - 1) / n;
+    if (score_smem_bytes(ck, tw, n_lanes) <= kSmemLimit) return ck;
+  }
+  return -1;
 }
 
 struct Params {
   int frame_h, frame_w, th, tw, out_h, out_w;
-  int radius_x, radius_y, lost_threshold, enable_global, n_valid;
+  int radius_x, radius_y, lost_threshold, enable_global;
+  int n_lanes;
+  int n_slots;          // partial slots per lane: one per score block
+  int max_split_tiles;  // split scratch per lane, in tiles
+  int stage_rows;
+  long long frame_stride;  // elements from one lane's frames to the next's
+  long long frame_px;      // elements of one frame
   float min_conf, global_conf, strong_conf, lr, one_minus_lr;
 };
 
-// Mode of frame t from the state (pvot/ops/ncc_mega.py:541-573) and the
+// Mode of frame t from a lane's state (pvot/ops/ncc_mega.py:541-573) and the
 // inclusive block of map positions the frame scores.
 struct Mode {
   bool use_global;  // this frame's computed flag (sets the threshold)
@@ -114,7 +176,7 @@ __device__ __forceinline__ bool bbox_outside(int bx, int by, int bw, int bh,
 
 __device__ Mode frame_mode(const int32_t* si, const Params& p, int t) {
   const int bx = si[0], by = si[1], bw = si[2], bh = si[3];
-  const int lost = si[4], useg = si[5];
+  const int lost = si[4], useg = si[5], n_valid = si[6];
   Mode m;
   m.use_global = p.enable_global &&
                  (useg != 0 || bbox_outside(bx, by, bw, bh, p) ||
@@ -125,7 +187,7 @@ __device__ Mode frame_mode(const int32_t* si, const Params& p, int t) {
   const int min_ty = max(0, cy - p.radius_y - (p.th >> 1));
   const int max_ty = min(p.out_h - 1, cy + p.radius_y - (p.th >> 1));
   const bool window_valid = max_tx >= min_tx && max_ty >= min_ty;
-  m.valid = t < p.n_valid;
+  m.valid = t < n_valid;
   m.do_global = (m.use_global || !window_valid) && m.valid;
   if (m.do_global) {
     m.ry0 = 0; m.ry1 = p.out_h - 1; m.rx0 = 0; m.rx1 = p.out_w - 1;
@@ -191,164 +253,340 @@ __device__ float2 block_sum2(float2 v, float2* scratch) {
   return v;
 }
 
-__global__ void __launch_bounds__(kScoreThreads)
-score_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ tpl,
-             const int32_t* __restrict__ si, const float* __restrict__ sf,
-             float* __restrict__ part_val, int32_t* __restrict__ part_yx,
-             float* split_part, int32_t* split_count, int max_split_tiles,
-             Params p, int t) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ Best s_best[kScoreThreads / 32];
-  __shared__ int s_last;
-  const int th = p.th, tw = p.tw;
-  const int tw4 = round_up4(tw);                 // template row stride, zero-padded
-  const int in_h = kTileH + th - 1;
-  const int in_wl = kTileW + tw4;                // input columns read
-  const int in_w = in_stride(tw4);               // input row stride (multiple of 4)
-  constexpr int n_out = kTileH * kTileW;
-  float* s_tc = smem;                            // th x tw4 centered template
-  float* s_in = s_tc + th * tw4;                 // in_h x in_w input tile
-  float* s_rs = s_in + in_h * in_w;              // in_h x kTileW row sums
-  float* s_rq = s_rs + in_h * kTileW;            // in_h x kTileW row sums of squares
-  float* s_red = s_rq + in_h * kTileW;           // kSplit x n_out partial correlations
-
-  const Mode m = frame_mode(si, p, t);
-  const int reg_h = m.ry1 - m.ry0 + 1, reg_w = m.rx1 - m.rx0 + 1;
-  const int tiles_x = reg_w > 0 ? (reg_w + kTileW - 1) / kTileW : 0;
-  const int n_tiles = reg_h > 0 ? ((reg_h + kTileH - 1) / kTileH) * tiles_x : 0;
-  // A local frame has too few tiles to fill the card: there two blocks share
-  // each tile, one half of the template rows each (the "items").
-  const int split = (!m.do_global && n_tiles <= max_split_tiles) ? 2 : 1;
-  const int n_items = n_tiles * split;
-  if (blockIdx.x >= n_items) {  // uniform per block: no work this frame
-    if (threadIdx.x == 0) {
-      part_val[blockIdx.x] = -INFINITY;
-      part_yx[2 * blockIdx.x] = kBig;
-      part_yx[2 * blockIdx.x + 1] = kBig;
-    }
-    return;
-  }
-
-  const float t_den = __fadd_rn(sf[1], kEps);  // t_std + 1e-6
-  const float sum_tc = sf[2];
-  const float n = static_cast<float>(th * tw);
-  // The centered template, tpl - t_mean; its padding columns stay 0, so
-  // they add exactly 0 to the correlation.
-  const float t_mean = sf[0];
-  for (int idx = threadIdx.x; idx < th * tw4 / 4; idx += blockDim.x) {
-    const float4 v = reinterpret_cast<const float4*>(tpl)[idx];
+// One lane's centered template rows, tpl - t_mean, from `src` (rows x tw4,
+// zero-padded) into s_tc, by threads begin, begin + step, ...  Padding
+// columns stay 0, so they add exactly 0 to the correlation.
+__device__ __forceinline__ void stage_template(float* s_tc, const float* src, float t_mean,
+                                               int rows, int tw, int tw4, int begin, int step) {
+  for (int idx = begin; idx < rows * tw4 / 4; idx += step) {
+    const float4 v = reinterpret_cast<const float4*>(src)[idx];
     const int j = (4 * idx) % tw4;
     reinterpret_cast<float4*>(s_tc)[idx] = make_float4(
         j < tw ? __fsub_rn(v.x, t_mean) : 0.0f, j + 1 < tw ? __fsub_rn(v.y, t_mean) : 0.0f,
         j + 2 < tw ? __fsub_rn(v.z, t_mean) : 0.0f, j + 3 < tw ? __fsub_rn(v.w, t_mean) : 0.0f);
   }
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One lane's work in frame t from its state (si, sf: the lane's slots),
+// unsplit; the caller decides whether two blocks share each tile.
+__device__ LaneWork lane_work(const int32_t* si, const float* sf, const Params& p, int t) {
+  const Mode m = frame_mode(si, p, t);
+  LaneWork w;
+  w.ry0 = m.ry0; w.rx0 = m.rx0; w.ry1 = m.ry1; w.rx1 = m.rx1;
+  const int reg_h = m.ry1 - m.ry0 + 1, reg_w = m.rx1 - m.rx0 + 1;
+  w.tiles_x = reg_w > 0 ? (reg_w + kTileW - 1) / kTileW : 0;
+  w.n_tiles = reg_h > 0 ? ((reg_h + kTileH - 1) / kTileH) * w.tiles_x : 0;
+  w.do_global = m.do_global;
+  w.split = 1; w.begin = 0; w.n_items = 0;
+  w.t_mean = sf[0];
+  w.t_den = __fadd_rn(sf[1], kEps);
+  w.sum_tc = sf[2];
+  return w;
+}
+
+// kWhole: the whole template is staged at once (stage_rows == th).  kOne:
+// the launch has one lane (K1); every thread derives its work into
+// registers, and there is no lane table.
+template <bool kWhole, bool kOne>
+__global__ void __launch_bounds__(kScoreThreads)
+score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
+             const int32_t* __restrict__ si, const float* __restrict__ sf,
+             float* __restrict__ part_val, int32_t* __restrict__ part_yx,
+             float* split_part, int32_t* split_count, Params p, int t) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Best s_best[kScoreThreads / 32];
+  __shared__ int s_last, s_n_items;
+  const int th = p.th, tw = p.tw;
+  const int tw4 = round_up4(tw);                 // template row stride, zero-padded
+  const int mid = th / 2;                        // halves: rows [0, mid), [mid, th)
+  const int in_wl = kTileW + tw4;                // input columns read
+  const int in_w = in_stride(tw4);               // input row stride (multiple of 4)
+  const int in_h = p.stage_rows + kTileH - 1;
+  const int nl = p.n_lanes;
+
+  LaneWork* lanes = reinterpret_cast<LaneWork*>(smem);  // the lane table (none if kOne)
+  float* s_tc = smem + (kOne ? 0 : lane_table_bytes(nl) / 4);  // staged rows x tw4, centered
+  float* s_in = s_tc + p.stage_rows * tw4;        // in_h x in_w input rows
+  float* s_rs = s_in + in_h * in_w;               // in_h x kTileW row sums
+  float* s_rq = s_rs + in_h * kTileW;             // in_h x kTileW row sums of squares
+  float* s_red = s_rq + in_h * kTileW;            // 2 halves x kSplit x kOut partials
+  float* s_col = s_red + 2 * kSplit * kOut;        // 2 halves x (sum, sum sq) x kOut
+
+  LaneWork one{};  // kOne: the lane's work
+  int n_items;
+  if (kOne) {
+    one = lane_work(si, sf, p, t);
+    // A local frame has too few tiles to fill the card: two blocks share
+    // each tile then, one half of the template rows each (the "items").
+    one.split = (!one.do_global && 2 * one.n_tiles <= static_cast<int>(gridDim.x)) ? 2 : 1;
+    one.n_items = one.n_tiles * one.split;
+    n_items = one.n_items;
+    if (static_cast<int>(blockIdx.x) >= n_items) {  // uniform per block: no work this frame
+      if (threadIdx.x == 0) {
+        part_val[blockIdx.x] = -INFINITY;
+        part_yx[2 * blockIdx.x] = kBig;
+        part_yx[2 * blockIdx.x + 1] = kBig;
+      }
+      return;
+    }
+    if (kWhole) stage_template(s_tc, tpl, one.t_mean, th, tw, tw4, threadIdx.x, blockDim.x);
+  } else {
+    if (threadIdx.x < 32) {
+      // Warp 0: each lane's mode, window and tiles; two blocks share each
+      // local tile only if every item still gets a block of its own; then
+      // the lanes' items end to end (exclusive prefix sum).  Thread `lane`
+      // owns table entries lane, lane + 32, ...
+      const int lane = threadIdx.x;
+      int want = 0;
+      for (int base = 0; base < nl; base += 32) {
+        const int l = base + lane;
+        int v = 0;
+        if (l < nl) {
+          lanes[l] = lane_work(si + l * kStateI, sf + l * kStateF, p, t);
+          v = lanes[l].n_tiles * (lanes[l].do_global ? 1 : 2);
+          // This block's partial for the lane stays empty unless one of its
+          // items scores the lane.
+          const int slot = l * p.n_slots + blockIdx.x;
+          part_val[slot] = -INFINITY;
+          part_yx[2 * slot] = kBig;
+          part_yx[2 * slot + 1] = kBig;
+        }
+        want += warp_sum(v);
+      }
+      const bool split = want <= static_cast<int>(gridDim.x);
+      int carry = 0;
+      for (int base = 0; base < nl; base += 32) {
+        const int l = base + lane;
+        int v = 0;
+        if (l < nl) {
+          lanes[l].split = (split && !lanes[l].do_global) ? 2 : 1;
+          v = lanes[l].n_tiles * lanes[l].split;
+        }
+        int inc = v;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int u = __shfl_up_sync(0xffffffffu, inc, off);
+          if (lane >= off) inc += u;
+        }
+        if (l < nl) {
+          lanes[l].begin = carry + inc - v;
+          lanes[l].n_items = v;
+        }
+        carry += __shfl_sync(0xffffffffu, inc, 31);
+      }
+      if (lane == 0) s_n_items = carry;
+    }
+    __syncthreads();
+    n_items = s_n_items;
+    if (static_cast<int>(blockIdx.x) >= n_items) return;  // uniform per block: no work
+  }
 
   const int group = threadIdx.x / kGroupThreads;
   const int lt = threadIdx.x % kGroupThreads;
   const int ty = lt / (kTileW / kRx), tx = lt % (kTileW / kRx);
+  const int o = threadIdx.x, y = o / kTileW, x = o % kTileW;  // output of threads < kOut
   Best best = empty_best();
+  int cur = kOne ? 0 : -1;        // the lane of the last item
+  int tc_lane = kWhole && kOne ? 0 : -1;  // what s_tc holds: lane and first row
+  int tc_row = kWhole && kOne ? 0 : -1;
+  bool fresh = true;              // no unit has used shared memory yet
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int tile = item / split, half = item % split;
-    const int r0 = half * th / split, r1 = (half + 1) * th / split;  // template rows
-    const int oy0 = m.ry0 + (tile / tiles_x) * kTileH;
-    const int ox0 = m.rx0 + (tile % tiles_x) * kTileW;
-    const int in_rows = r1 - r0 + kTileH - 1;    // input rows r0 .. r1 + kTileH - 2
-    __syncthreads();  // the previous item's readers are done with shared memory
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < in_rows * in_wl; idx += blockDim.x) {
-      const int r = r0 + idx / in_wl, c = idx % in_wl;
-      const int gy = oy0 + r, gx = ox0 + c;
-      const float v = (gy < p.frame_h && gx < p.frame_w)
-                          ? static_cast<float>(frame[static_cast<size_t>(gy) * p.frame_w + gx])
-                          : 0.0f;
-      s_in[r * in_w + c] = __fmul_rn(v, kU8Scale);
-    }
-    __syncthreads();
-
-    // Box sums, separably: each input row's sums over tw columns ...
-    for (int e = threadIdx.x; e < in_rows * kTileW; e += blockDim.x) {
-      const int r = r0 + e / kTileW, x = e % kTileW;
-      const float* row = s_in + r * in_w + x;
-      float rs = 0.0f, rq = 0.0f;
-      for (int j = 0; j < tw; ++j) {
-        rs += row[j];
-        rq = fmaf(row[j], row[j], rq);
+    int l = 0;
+    if (!kOne) {
+      l = cur < 0 ? 0 : cur;
+      while (item >= lanes[l].begin + lanes[l].n_items) ++l;  // items run lane by lane
+      if (l != cur) {
+        if (cur >= 0) {
+          best = block_best(best, s_best);
+          if (threadIdx.x == 0) {
+            const int slot = cur * p.n_slots + blockIdx.x;
+            part_val[slot] = best.val;
+            part_yx[2 * slot] = best.y;
+            part_yx[2 * slot + 1] = best.x;
+          }
+          best = empty_best();
+        }
+        cur = l;
       }
-      s_rs[r * kTileW + x] = rs;
-      s_rq[r * kTileW + x] = rq;
     }
+    const LaneWork& w = kOne ? one : lanes[l];
+    const int split = w.split;
+    const int local = item - w.begin;
+    const int tile = local / split, half = local % split;
+    const int h_lo = split == 2 ? half : 0, h_hi = split == 2 ? half + 1 : 2;
+    const int oy0 = w.ry0 + (tile / w.tiles_x) * kTileH;
+    const int ox0 = w.rx0 + (tile % w.tiles_x) * kTileW;
 
-    // ... while each thread correlates 4 neighbouring outputs over its
-    // group's share of the item's template rows, 4 taps per step from float4
-    // loads (padding columns of the template hold 0 and add exactly 0).
     float acc[kRx];
 #pragma unroll
     for (int k = 0; k < kRx; ++k) acc[k] = 0.0f;
-    const int i_begin = r0 + group * (r1 - r0) / kSplit;
-    const int i_end = r0 + (group + 1) * (r1 - r0) / kSplit;
-    for (int i = i_begin; i < i_end; ++i) {
-      const float* in_row = s_in + (ty + i) * in_w + tx * kRx;
-      const float* t_row = s_tc + i * tw4;
-      float4 a = *reinterpret_cast<const float4*>(in_row);
-      for (int j0 = 0; j0 < tw4; j0 += 4) {
-        const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
-        const float4 tv = *reinterpret_cast<const float4*>(t_row + j0);
-        const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    if (!kWhole && o < kOut) {  // thread o's column sums of each half, carried across units
 #pragma unroll
-        for (int k = 0; k < kRx; ++k) {
-          acc[k] = fmaf(w[k], tv.x, acc[k]);
-          acc[k] = fmaf(w[k + 1], tv.y, acc[k]);
-          acc[k] = fmaf(w[k + 2], tv.z, acc[k]);
-          acc[k] = fmaf(w[k + 3], tv.w, acc[k]);
-        }
-        a = b;
-      }
+      for (int c = 0; c < 4; ++c) s_col[c * kOut + o] = 0.0f;
     }
-#pragma unroll
-    for (int k = 0; k < kRx; ++k) s_red[group * n_out + lt * kRx + k] = acc[k];
-    __syncthreads();  // row sums and partial correlations are in shared memory
+    // Stage units: the item's rows at once when the whole template is
+    // staged, else one chunk of one half at a time (chunks start at the
+    // half's first row).
+    const int row_hi = h_hi == 1 ? mid : th;
+    for (int u0 = h_lo == 0 ? 0 : mid; u0 < row_hi;) {
+      const int u1 = kWhole ? row_hi : min(u0 + p.stage_rows, u0 < mid ? mid : th);
+      const int t_row = kWhole ? 0 : u0;
+      if (!fresh) __syncthreads();  // the previous unit's readers are done with it
+      fresh = false;
+      if (tc_lane != l || tc_row != t_row) {
+        stage_template(s_tc, tpl + (static_cast<size_t>(l) * th + t_row) * tw4, w.t_mean,
+                       kWhole ? th : u1 - u0, tw, tw4, threadIdx.x, blockDim.x);
+        tc_lane = l;
+        tc_row = t_row;
+      }
+      const int in_rows = u1 - u0 + kTileH - 1;  // input rows u0 .. u1 + kTileH - 2
+      const uint8_t* frame = frames + l * p.frame_stride + t * p.frame_px;
+#pragma unroll 4
+      for (int idx = threadIdx.x; idx < in_rows * in_wl; idx += blockDim.x) {
+        const int r = idx / in_wl, c = idx % in_wl;
+        const int gy = oy0 + u0 + r, gx = ox0 + c;
+        const float v = (gy < p.frame_h && gx < p.frame_w)
+                            ? static_cast<float>(frame[static_cast<size_t>(gy) * p.frame_w + gx])
+                            : 0.0f;
+        s_in[r * in_w + c] = __fmul_rn(v, kU8Scale);
+      }
+      __syncthreads();
 
-    // One thread per output: the groups' partials in a fixed order, and the
-    // column of row sums over the item's template rows.
-    const int o = threadIdx.x, y = o / kTileW, x = o % kTileW;
-    float a_o = 0.0f, bs = 0.0f, bq = 0.0f;
-    if (o < n_out) {
-      for (int g = 0; g < kSplit; ++g) a_o = __fadd_rn(a_o, s_red[g * n_out + o]);
-      for (int i = r0; i < r1; ++i) {
-        bs += s_rs[(y + i) * kTileW + x];
-        bq += s_rq[(y + i) * kTileW + x];
+      // Box sums, separably: each input row's sums over tw columns ...
+      for (int e = threadIdx.x; e < in_rows * kTileW; e += blockDim.x) {
+        const int r = e / kTileW, xx = e % kTileW;
+        const float* row = s_in + r * in_w + xx;
+        float rs = 0.0f, rq = 0.0f;
+        for (int j = 0; j < tw; ++j) {
+          rs += row[j];
+          rq = fmaf(row[j], row[j], rq);
+        }
+        s_rs[r * kTileW + xx] = rs;
+        s_rq[r * kTileW + xx] = rq;
+      }
+
+      // ... while each thread correlates 4 neighbouring outputs over its
+      // group's share of each half's rows, as far as this unit holds them,
+      // 4 taps per step from float4 loads (padding columns of the template
+      // hold 0 and add exactly 0).  The shares are cut from the whole half,
+      // so a group adds the same rows in the same order however the half is
+      // chunked.  A half's partials go to shared memory in the unit that
+      // ends it.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h < h_lo || h >= h_hi) continue;
+        const int hs = h == 0 ? 0 : mid, he = h == 0 ? mid : th;
+        const int c0 = max(u0, hs), c1 = min(u1, he);
+        // Half 1 hands out its row shares in reverse, so that a warp's two
+        // shares of an odd split add up evenly.
+        const int gs = h == 0 ? group : kSplit - 1 - group;
+        const int i_begin = max(c0, hs + gs * (he - hs) / kSplit);
+        const int i_end = min(c1, hs + (gs + 1) * (he - hs) / kSplit);
+        for (int i = i_begin; i < i_end; ++i) {
+          const float* in_row = s_in + (ty + i - u0) * in_w + tx * kRx;
+          const float* t_rowp = s_tc + (i - t_row) * tw4;
+          float4 a = *reinterpret_cast<const float4*>(in_row);
+          for (int j0 = 0; j0 < tw4; j0 += 4) {
+            const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
+            const float4 tv = *reinterpret_cast<const float4*>(t_rowp + j0);
+            const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int k = 0; k < kRx; ++k) {
+              acc[k] = fmaf(wv[k], tv.x, acc[k]);
+              acc[k] = fmaf(wv[k + 1], tv.y, acc[k]);
+              acc[k] = fmaf(wv[k + 2], tv.z, acc[k]);
+              acc[k] = fmaf(wv[k + 3], tv.w, acc[k]);
+            }
+            a = b;
+          }
+        }
+        if (kWhole || (u0 < he && u1 >= he)) {
+#pragma unroll
+          for (int k = 0; k < kRx; ++k) {
+            s_red[(h * kSplit + group) * kOut + lt * kRx + k] = acc[k];
+            acc[k] = 0.0f;
+          }
+        }
+      }
+      __syncthreads();  // row sums and partial correlations are in shared memory
+
+      // The column of row sums over each half's rows in this unit.
+      if (!kWhole && o < kOut) {
+        for (int h = h_lo; h < h_hi; ++h) {
+          const int c0 = max(u0, h == 0 ? 0 : mid), c1 = min(u1, h == 0 ? mid : th);
+          float bs = s_col[(2 * h) * kOut + o], bq = s_col[(2 * h + 1) * kOut + o];
+          for (int i = c0; i < c1; ++i) {
+            bs += s_rs[(y + i - u0) * kTileW + x];
+            bq += s_rq[(y + i - u0) * kTileW + x];
+          }
+          s_col[(2 * h) * kOut + o] = bs;
+          s_col[(2 * h + 1) * kOut + o] = bq;
+        }
+      }
+      u0 = u1;
+    }
+
+    // One thread per output: each half's group partials in a fixed order,
+    // then half 0 + half 1 (the sum of two terms does not depend on which
+    // block of a shared tile adds it).
+    float a_o = 0.0f, bs_o = 0.0f, bq_o = 0.0f;
+    if (o < kOut) {
+      for (int h = h_lo; h < h_hi; ++h) {
+        float a_h = 0.0f;
+        for (int g = 0; g < kSplit; ++g) a_h = __fadd_rn(a_h, s_red[(h * kSplit + g) * kOut + o]);
+        a_o = __fadd_rn(a_o, a_h);
+        float bs_h, bq_h;
+        if (kWhole) {  // the column of row sums over the half, as the chunks add it
+          bs_h = 0.0f;
+          bq_h = 0.0f;
+          const int u_first = h_lo == 0 ? 0 : mid;  // the one unit's first row
+          for (int i = h == 0 ? 0 : mid; i < (h == 0 ? mid : th); ++i) {
+            bs_h += s_rs[(y + i - u_first) * kTileW + x];
+            bq_h += s_rq[(y + i - u_first) * kTileW + x];
+          }
+        } else {
+          bs_h = s_col[(2 * h) * kOut + o];
+          bq_h = s_col[(2 * h + 1) * kOut + o];
+        }
+        bs_o = __fadd_rn(bs_o, bs_h);
+        bq_o = __fadd_rn(bq_o, bq_h);
       }
     }
     if (split == 2) {
-      // Both halves publish; the later one adds the other's partials (a sum
-      // of two terms, so the result does not depend on which is later).
-      float* mine = split_part + (tile * 2 + half) * 3 * n_out;
-      if (o < n_out) {
+      // Both halves publish; the later one adds the other's partials.
+      const size_t cell = static_cast<size_t>(l) * p.max_split_tiles + tile;
+      float* mine = split_part + (cell * 2 + half) * 3 * kOut;
+      if (o < kOut) {
         mine[o] = a_o;
-        mine[n_out + o] = bs;
-        mine[2 * n_out + o] = bq;
+        mine[kOut + o] = bs_o;
+        mine[2 * kOut + o] = bq_o;
       }
       __threadfence();
       __syncthreads();
-      if (threadIdx.x == 0) s_last = atomicAdd(&split_count[tile], 1) == 1;
+      if (threadIdx.x == 0) s_last = atomicAdd(&split_count[cell], 1) == 1;
       __syncthreads();
       if (!s_last) continue;  // uniform per block
-      const float* other = split_part + (tile * 2 + 1 - half) * 3 * n_out;
-      if (o < n_out) {
+      const float* other = split_part + (cell * 2 + 1 - half) * 3 * kOut;
+      if (o < kOut) {
         a_o = __fadd_rn(a_o, __ldcg(other + o));
-        bs = __fadd_rn(bs, __ldcg(other + n_out + o));
-        bq = __fadd_rn(bq, __ldcg(other + 2 * n_out + o));
+        bs_o = __fadd_rn(bs_o, __ldcg(other + kOut + o));
+        bq_o = __fadd_rn(bq_o, __ldcg(other + 2 * kOut + o));
       }
-      if (threadIdx.x == 0) split_count[tile] = 0;  // ready for the next frame
+      if (threadIdx.x == 0) split_count[cell] = 0;  // ready for the next frame
     }
     const int oy = oy0 + y, ox = ox0 + x;
-    if (o < n_out && oy <= m.ry1 && ox <= m.rx1) {
-      const float mean = __fdiv_rn(bs, n);
-      const float var = __fsub_rn(__fdiv_rn(bq, n), __fmul_rn(mean, mean));
+    if (o < kOut && oy <= w.ry1 && ox <= w.rx1) {
+      const float n = static_cast<float>(th * tw);
+      const float mean = __fdiv_rn(bs_o, n);
+      const float var = __fsub_rn(__fdiv_rn(bq_o, n), __fmul_rn(mean, mean));
       const float sd = __fsqrt_rn(fmaxf(var, kVarFloor));
-      const float cov = __fsub_rn(a_o, __fmul_rn(mean, sum_tc));
-      const float den = __fmul_rn(__fmul_rn(__fadd_rn(sd, kEps), t_den), n);
+      const float cov = __fsub_rn(a_o, __fmul_rn(mean, w.sum_tc));
+      const float den = __fmul_rn(__fmul_rn(__fadd_rn(sd, kEps), w.t_den), n);
       const Best cand{__fdiv_rn(cov, den), oy, ox};
       if (lex_better(cand, best)) best = cand;
     }
@@ -356,26 +594,37 @@ score_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ tpl,
 
   best = block_best(best, s_best);
   if (threadIdx.x == 0) {
-    part_val[blockIdx.x] = best.val;
-    part_yx[2 * blockIdx.x] = best.y;
-    part_yx[2 * blockIdx.x + 1] = best.x;
+    const int slot = cur * p.n_slots + blockIdx.x;
+    part_val[slot] = best.val;
+    part_yx[2 * slot] = best.y;
+    part_yx[2 * slot + 1] = best.x;
   }
 }
 
 __global__ void __launch_bounds__(kCommitThreads)
-commit_kernel(const uint8_t* __restrict__ frame, float* __restrict__ tpl,
+commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
               int32_t* __restrict__ si, float* __restrict__ sf,
               const float* __restrict__ part_val, const int32_t* __restrict__ part_yx,
-              int n_parts, float* __restrict__ row, Params p, int t) {
+              float* __restrict__ rows, Params p, int t, int n_frames) {
   __shared__ Best s_best[kCommitThreads / 32];
   __shared__ float2 s_sum2[kCommitThreads / 32];
+  const int s = blockIdx.x;
+  const int tw4 = round_up4(p.tw);
+  const uint8_t* frame = frames + s * p.frame_stride + t * p.frame_px;
+  tpl += static_cast<size_t>(s) * p.th * tw4;
+  si += s * kStateI;
+  sf += s * kStateF;
+  part_val += static_cast<size_t>(s) * p.n_slots;
+  part_yx += 2 * static_cast<size_t>(s) * p.n_slots;
+  float* row = rows + (static_cast<size_t>(s) * n_frames + t) * kRecord;
+
   const Mode m = frame_mode(si, p, t);
   const int bx = si[0], by = si[1], bw = si[2], bh = si[3];
   const int lost = si[4], useg = si[5];
   const float t_mean = sf[0], t_std = sf[1], sum_tc = sf[2];
 
   Best best = empty_best();
-  for (int i = threadIdx.x; i < n_parts; i += blockDim.x) {
+  for (int i = threadIdx.x; i < p.n_slots; i += blockDim.x) {
     const Best c{part_val[i], part_yx[2 * i], part_yx[2 * i + 1]};
     if (lex_better(c, best)) best = c;
   }
@@ -397,12 +646,13 @@ commit_kernel(const uint8_t* __restrict__ frame, float* __restrict__ tpl,
   const bool strong = accept && best.val >= p.strong_conf;
   float new_mean = t_mean, new_std = t_std, new_sum_tc = sum_tc;
   if (strong) {
-    // Each thread keeps its pixels (idx = threadIdx.x + k * kCommitThreads)
-    // in registers across the EMA and stats passes.
-    const int n_px = p.th * p.tw, tw4 = round_up4(p.tw);
+    // Pixel idx = threadIdx.x + k * kCommitThreads.  The first kEmaPerThread
+    // of each thread stay in registers across the EMA and stats passes; the
+    // rest (templates above 20,480 pixels) are read back from device memory.
+    const int n_px = p.th * p.tw;
     const float n = static_cast<float>(n_px);
     float v[kEmaPerThread];
-    float s = 0.0f, s2 = 0.0f;
+    float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
     for (int k = 0; k < kEmaPerThread; ++k) {
       const int idx = threadIdx.x + k * kCommitThreads;
@@ -415,11 +665,23 @@ commit_kernel(const uint8_t* __restrict__ frame, float* __restrict__ tpl,
         float* px = tpl + i * tw4 + j;
         v[k] = __fadd_rn(__fmul_rn(p.one_minus_lr, *px), __fmul_rn(p.lr, patch));
         *px = v[k];
-        s += v[k];
+        s1 += v[k];
         s2 = fmaf(v[k], v[k], s2);
       }
     }
-    const float2 tot = block_sum2(make_float2(s, s2), s_sum2);
+    for (int idx = threadIdx.x + kEmaPerThread * kCommitThreads; idx < n_px;
+         idx += kCommitThreads) {
+      const int i = idx / p.tw, j = idx % p.tw;
+      const float patch = __fmul_rn(
+          static_cast<float>(frame[static_cast<size_t>(best.y + i) * p.frame_w + best.x + j]),
+          kU8Scale);
+      float* px = tpl + i * tw4 + j;
+      const float e = __fadd_rn(__fmul_rn(p.one_minus_lr, *px), __fmul_rn(p.lr, patch));
+      *px = e;
+      s1 += e;
+      s2 = fmaf(e, e, s2);
+    }
+    const float2 tot = block_sum2(make_float2(s1, s2), s_sum2);
     new_mean = __fdiv_rn(tot.x, n);
     const float var = __fsub_rn(__fdiv_rn(tot.y, n), __fmul_rn(new_mean, new_mean));
     new_std = __fadd_rn(__fsqrt_rn(fmaxf(var, 0.0f)), kEps);
@@ -427,6 +689,10 @@ commit_kernel(const uint8_t* __restrict__ frame, float* __restrict__ tpl,
 #pragma unroll
     for (int k = 0; k < kEmaPerThread; ++k) {
       if (threadIdx.x + k * kCommitThreads < n_px) c += __fsub_rn(v[k], new_mean);
+    }
+    for (int idx = threadIdx.x + kEmaPerThread * kCommitThreads; idx < n_px;
+         idx += kCommitThreads) {
+      c += __fsub_rn(tpl[(idx / p.tw) * tw4 + idx % p.tw], new_mean);  // this thread's own store
     }
     new_sum_tc = block_sum2(make_float2(c, 0.0f), s_sum2).x;
   }
@@ -449,48 +715,136 @@ commit_kernel(const uint8_t* __restrict__ frame, float* __restrict__ tpl,
   }
 }
 
-}  // namespace
+using ScoreKernel = void (*)(const uint8_t*, const float*, const int32_t*, const float*,
+                            float*, int32_t*, float*, int32_t*, Params, int);
 
-extern "C" {
+// The score kernel's instantiation for a template staged whole or in
+// chunks, and for one lane or many.
+ScoreKernel score_kernel_for(bool whole, bool one) {
+  if (whole) return one ? score_kernel<true, true> : score_kernel<true, false>;
+  return one ? score_kernel<false, true> : score_kernel<false, false>;
+}
 
-// Runs one chunk: 2 * n_frames launches on `stream`, no synchronisation.
-// state_i = [bx, by, bw, bh, lost, use_global, _, _], state_f = [t_mean,
-// t_std, sum_tc, _] and tpl (th x round_up4(tw), zero-padded columns) are read
-// and updated in place; rows is (n_frames, 10).
-// part_val / part_yx hold n_parts per-block winners; split_part (max_split_tiles
-// x 2 x 3 x kTileH*kTileW floats) and split_count (max_split_tiles ints, zero)
-// serve local frames whose tiles two blocks share.  Returns the first CUDA
-// error, or 0.
-int pvot_mega_track_chunk(const uint8_t* frames, int n_frames, int frame_h, int frame_w,
-                          int th, int tw, int n_valid, int32_t* state_i, float* state_f,
-                          float* tpl, float* part_val, int32_t* part_yx,
-                          int n_parts, float* split_part, int32_t* split_count,
-                          int max_split_tiles, float* rows, int radius_x, int radius_y,
-                          int lost_threshold, int enable_global, float min_conf,
-                          float global_conf, float strong_conf, float lr,
-                          float one_minus_lr, void* stream) {
-  Params p{frame_h, frame_w, th, tw, frame_h - th + 1, frame_w - tw + 1,
-           radius_x, radius_y, lost_threshold, enable_global, n_valid,
-           min_conf, global_conf, strong_conf, lr, one_minus_lr};
-  const int smem = score_smem_bytes(th, tw);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Lets a score block use `smem` bytes of dynamic shared memory, and asks for
+// the largest shared-memory carveout: two 94 KB blocks (the 80 x 80 geometry)
+// fit an SM only there; the default carveout left room for one.
+cudaError_t set_score_smem(ScoreKernel kernel, int smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// One chunk of n_frames over n_lanes lanes: 2 * n_frames launches on `stream`.
+int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int n_frames,
+                 int frame_h, int frame_w, int th, int tw, int32_t* state_i, float* state_f,
+                 float* tpl, float* part_val, int32_t* part_yx, int n_blocks,
+                 float* split_part, int32_t* split_count, float* rows, int radius_x,
+                 int radius_y, int lost_threshold, int enable_global, float min_conf,
+                 float global_conf, float strong_conf, float lr, float one_minus_lr,
+                 cudaStream_t stream) {
+  Params p{};
+  p.frame_h = frame_h; p.frame_w = frame_w; p.th = th; p.tw = tw;
+  p.out_h = frame_h - th + 1; p.out_w = frame_w - tw + 1;
+  p.radius_x = radius_x; p.radius_y = radius_y;
+  p.lost_threshold = lost_threshold; p.enable_global = enable_global;
+  p.n_lanes = n_lanes;
+  p.n_slots = n_blocks;
+  p.max_split_tiles = n_blocks / 2;
+  p.stage_rows = stage_rows(th, tw, n_lanes);
+  p.frame_stride = frame_stride;
+  p.frame_px = static_cast<long long>(frame_h) * frame_w;
+  p.min_conf = min_conf; p.global_conf = global_conf; p.strong_conf = strong_conf;
+  p.lr = lr; p.one_minus_lr = one_minus_lr;
+  if (p.stage_rows < 1 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = score_smem_bytes(p.stage_rows, tw, n_lanes);
+  const ScoreKernel score = score_kernel_for(p.stage_rows == th, n_lanes == 1);
+  cudaError_t err = set_score_smem(score, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t frame_px = static_cast<size_t>(frame_h) * frame_w;
   for (int t = 0; t < n_frames; ++t) {
-    const uint8_t* frame = frames + t * frame_px;
-    score_kernel<<<n_parts, kScoreThreads, smem, s>>>(
-        frame, tpl, state_i, state_f, part_val, part_yx, split_part, split_count,
-        max_split_tiles, p, t);
+    score<<<n_blocks, kScoreThreads, smem, stream>>>(
+        frames, tpl, state_i, state_f, part_val, part_yx, split_part, split_count, p, t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    commit_kernel<<<1, kCommitThreads, 0, s>>>(frame, tpl, state_i, state_f, part_val,
-                                               part_yx, n_parts, rows + t * kLanes, p, t);
+    commit_kernel<<<n_lanes, kCommitThreads, 0, stream>>>(
+        frames, tpl, state_i, state_f, part_val, part_yx, rows, p, t, n_frames);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: one stream's chunk, 2 * n_frames launches on `stream`, no
+// synchronisation.  state_i = [bx, by, bw, bh, lost, use_global, n_valid, _],
+// state_f = [t_mean, t_std, sum_tc, _] and tpl (th x round_up4(tw),
+// zero-padded columns) are read and updated in place; rows is (n_frames, 10).
+// part_val / part_yx hold n_blocks per-block winners; split_part
+// (n_blocks / 2 x 2 x 3 x 128 floats) and split_count (n_blocks / 2 ints,
+// zero) serve local frames whose tiles two blocks share.  Returns the first
+// CUDA error, or 0.
+int pvot_mega_track_chunk(const uint8_t* frames, int n_frames, int frame_h, int frame_w,
+                          int th, int tw, int32_t* state_i, float* state_f, float* tpl,
+                          float* part_val, int32_t* part_yx, int n_blocks,
+                          float* split_part, int32_t* split_count, float* rows,
+                          int radius_x, int radius_y, int lost_threshold, int enable_global,
+                          float min_conf, float global_conf, float strong_conf, float lr,
+                          float one_minus_lr, void* stream) {
+  return launch_chunk(frames, 0, 1, n_frames, frame_h, frame_w, th, tw, state_i, state_f,
+                      tpl, part_val, part_yx, n_blocks, split_part, split_count, rows,
+                      radius_x, radius_y, lost_threshold, enable_global, min_conf,
+                      global_conf, strong_conf, lr, one_minus_lr,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// K2: n_lanes streams' chunks, 2 * n_frames launches in all.  Lane s reads
+// frames + s * frame_stride (n_frames x frame_h x frame_w u8), state_i + 8s,
+// state_f + 4s, tpl + s * th * round_up4(tw), and writes rows + 10 * s *
+// n_frames.  The n_blocks score blocks share the union of all lanes' tiles.
+// The partials hold n_blocks per lane; split_part and split_count n_blocks /
+// 2 tiles per lane.
+int pvot_mega_track_chunk_multi(const uint8_t* frames, long long frame_stride, int n_lanes,
+                                int n_frames, int frame_h, int frame_w, int th, int tw,
+                                int32_t* state_i, float* state_f, float* tpl,
+                                float* part_val, int32_t* part_yx, int n_blocks,
+                                float* split_part, int32_t* split_count, float* rows,
+                                int radius_x, int radius_y, int lost_threshold,
+                                int enable_global, float min_conf, float global_conf,
+                                float strong_conf, float lr, float one_minus_lr,
+                                void* stream) {
+  return launch_chunk(frames, frame_stride, n_lanes, n_frames, frame_h, frame_w, th, tw,
+                      state_i, state_f, tpl, part_val, part_yx, n_blocks, split_part,
+                      split_count, rows, radius_x, radius_y, lost_threshold, enable_global,
+                      min_conf, global_conf, strong_conf, lr, one_minus_lr,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// Template rows a score block stages at once (see stage_rows), for the
+// wrapper's envelope check to be held against.
+int pvot_mega_stage_rows(int th, int tw, int n_lanes) {
+  return stage_rows(th, tw, n_lanes);
+}
+
+// Score blocks resident on one SM at the given geometry (for the build
+// report), or -1 on a CUDA error.
+int pvot_mega_score_blocks_per_sm(int th, int tw, int n_lanes) {
+  const int rows = stage_rows(th, tw, n_lanes);
+  if (rows < 1) return -1;
+  const int smem = score_smem_bytes(rows, tw, n_lanes);
+  const ScoreKernel score = score_kernel_for(rows == th, n_lanes == 1);
+  int n = 0;
+  if (set_score_smem(score, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, score, kScoreThreads, smem) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return n;
 }
 
 const char* pvot_cuda_error_string(int err) {

@@ -8,9 +8,16 @@ Two different roundings, and parity needs both:
     multiply by float32(1/255), as pvot/io/gray.py:90 and the mega kernel
     (pvot/ops/ncc_mega.py:608-611) do.  The CUDA kernel uses the same
     constant (pvot_torch/csrc/ncc_mega.cu, kU8Scale).
+
+`bgr_to_gray_u8` is a copy of pvot/io/gray.py:33: OpenCV's fixed-point
+BGR2GRAY, through cv2 where it is installed (imported at first use: the
+card's machine has no OpenCV) and the same 15-bit formula in numpy
+otherwise.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -18,6 +25,35 @@ import torch
 # float32(1/255) as a Python float: exactly representable in f32, so every
 # conversion of it (torch scalar promotion, the C++ literal) is exact.
 U8_SCALE = float(np.float32(1.0 / 255.0))
+
+# OpenCV's fixed-point BGR2GRAY coefficients: R=0.299, G=0.587, B=0.114
+# quantized to 15 fractional bits (pvot/io/gray.py:26-30).
+_R_COEF, _G_COEF, _B_COEF, _SHIFT = 9798, 19235, 3735, 15
+_ROUND = 1 << (_SHIFT - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _cv2():
+    """OpenCV, or None where it is not installed."""
+    try:
+        import cv2  # type: ignore
+    except ImportError:
+        return None
+    return cv2
+
+
+def bgr_to_gray_u8(frame_bgr: np.ndarray) -> np.ndarray:
+    """uint8 BGR (H, W, 3) -> uint8 gray (H, W), bit-exact with cv2.cvtColor."""
+    if frame_bgr.dtype != np.uint8 or frame_bgr.ndim != 3 or frame_bgr.shape[2] != 3:
+        raise ValueError(f"expected uint8 HxWx3 BGR, got {frame_bgr.dtype} {frame_bgr.shape}")
+    cv2 = _cv2()
+    if cv2 is None:
+        b = frame_bgr[..., 0].astype(np.uint32)
+        g = frame_bgr[..., 1].astype(np.uint32)
+        r = frame_bgr[..., 2].astype(np.uint32)
+        y = (b * _B_COEF + g * _G_COEF + r * _R_COEF + _ROUND) >> _SHIFT
+        return y.astype(np.uint8)
+    return cv2.cvtColor(frame_bgr, cv2.COLOR_BGR2GRAY)
 
 
 def gray_u8_to_f32(gray_u8: np.ndarray) -> np.ndarray:

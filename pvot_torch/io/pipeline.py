@@ -1,0 +1,177 @@
+"""Host streaming pipeline: decode -> native gray -> ring -> chunks.
+
+A copy of pvot/io/pipeline.py:22 `FramePipeline` (copied, not imported:
+importing `pvot` imports JAX).  A background thread decodes and
+gray-converts (native C++ kernels, pvot_torch.runtime.native) into a
+lock-free ring; the consumer pops chunk-sized uint8 arrays and ships them to
+the device while the card tracks the previous chunk.  The tail chunk is
+padded with the final frame and carries its count of real frames.
+`fill` is the port's addition: it pops the next chunk straight into a
+buffer the caller owns (the serving loop's pinned staging), where `chunks`
+allocates and concatenates arrays for every chunk.  `track_stream` is not
+ported yet (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Iterable, Iterator, Optional, Tuple
+
+import numpy as np
+
+
+class FramePipeline:
+    """Background decode/convert into a frame ring; iterate device chunks.
+
+    frame_iter: yields uint8 BGR (H, W, 3) or gray (H, W) frames.
+    Produces (chunk (chunk_size, H, W) uint8, n_real) pairs; the last chunk
+    may be padded (repeat of the final frame) with n_real < chunk_size.
+    """
+
+    def __init__(
+        self,
+        frame_iter: Iterable[np.ndarray],
+        frame_shape: Tuple[int, int],
+        chunk_size: int = 32,
+        capacity: int = 256,
+        use_native: bool = True,
+    ):
+        self._iter = iter(frame_iter)
+        self._shape = tuple(frame_shape)
+        self.chunk_size = chunk_size
+        self._done = threading.Event()
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._use_native = use_native
+        from pvot_torch.runtime import native
+
+        if use_native and native.available():
+            self._ring = native.FrameRing(capacity, self._shape)
+            self._convert = native.bgr_to_gray_u8
+        else:  # pure-Python fallback ring
+            from collections import deque
+
+            self._ring = None
+            self._queue = deque()
+            self._qlock = threading.Lock()
+            self._capacity = capacity
+            from pvot_torch.io.gray import bgr_to_gray_u8
+
+            self._convert = bgr_to_gray_u8
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    # -- producer -----------------------------------------------------------
+    def _push(self, frame: np.ndarray) -> None:
+        if self._ring is not None:
+            while not self._ring.push(frame):
+                if self._stop.is_set():
+                    return
+                time.sleep(0.0005)
+        else:
+            while not self._stop.is_set():
+                with self._qlock:
+                    if len(self._queue) < self._capacity:
+                        self._queue.append(frame)
+                        return
+                time.sleep(0.0005)
+
+    def _worker(self) -> None:
+        try:
+            for frame in self._iter:
+                if self._stop.is_set():
+                    return
+                if frame.ndim == 3:
+                    frame = self._convert(frame)
+                if frame.shape != self._shape:
+                    raise ValueError(
+                        f"frame shape {frame.shape} != pipeline {self._shape}"
+                    )
+                self._push(np.ascontiguousarray(frame, np.uint8))
+        except BaseException as e:  # surfaced on the consumer side
+            self._error = e
+        finally:
+            self._done.set()
+
+    # -- consumer -----------------------------------------------------------
+    def _pop(self, max_frames: int) -> np.ndarray:
+        if self._ring is not None:
+            return self._ring.pop(max_frames)
+        out = []
+        with self._qlock:
+            while self._queue and len(out) < max_frames:
+                out.append(self._queue.popleft())
+        return (
+            np.stack(out) if out else np.zeros((0, *self._shape), np.uint8)
+        )
+
+    def chunks(self) -> Iterator[Tuple[np.ndarray, int]]:
+        """Yield (padded chunk, n_real) until the stream is exhausted."""
+        pending = np.zeros((0, *self._shape), np.uint8)
+        while True:
+            got = self._pop(self.chunk_size - len(pending))
+            pending = np.concatenate([pending, got]) if len(got) else pending
+            stream_over = self._done.is_set() and self._pop_peek_empty()
+            if len(pending) == self.chunk_size:
+                yield pending, self.chunk_size
+                pending = pending[:0]
+            elif stream_over:
+                if self._error is not None:
+                    raise self._error
+                if len(pending):
+                    n_real = len(pending)
+                    pad = np.repeat(
+                        pending[-1:], self.chunk_size - n_real, axis=0
+                    )
+                    yield np.concatenate([pending, pad]), n_real
+                return
+            else:
+                time.sleep(0.0005)
+
+    def _pop_into(self, out: np.ndarray) -> int:
+        if self._ring is not None:
+            return self._ring.pop_into(out)
+        with self._qlock:
+            got = [self._queue.popleft() for _ in range(min(len(out), len(self._queue)))]
+        for k, frame in enumerate(got):
+            out[k] = frame
+        return len(got)
+
+    def fill(self, out: np.ndarray) -> int:
+        """Write the next chunk into `out` ((chunk_size, H, W) uint8,
+        C-contiguous), padded with its final frame as `chunks` pads it, and
+        return its count of real frames; 0 once the stream is exhausted (then
+        `out` is left as it was)."""
+        n = 0
+        while True:
+            n += self._pop_into(out[n:])
+            stream_over = self._done.is_set() and self._pop_peek_empty()
+            if n == self.chunk_size:
+                return n
+            if stream_over:
+                if self._error is not None:
+                    raise self._error
+                if n:
+                    out[n:] = out[n - 1]
+                return n
+            time.sleep(0.0005)
+
+    def _pop_peek_empty(self) -> bool:
+        if self._ring is not None:
+            return len(self._ring) == 0
+        with self._qlock:
+            return not self._queue
+
+    def close(self) -> None:
+        """Stop the producer, join it, THEN free the native ring.
+
+        Destroying the ring while the decode thread is still blocked inside
+        _push would hand a freed C struct to pvot_ring_push (use-after-free);
+        the stop event breaks that spin first and the join guarantees no
+        native call is in flight when the ring is destroyed."""
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self._ring is not None:
+            self._ring.close()
+            self._ring = None

@@ -1,0 +1,302 @@
+"""End-to-end multi-stream serving: S live video streams on one card (the
+port of pvot/io/serving.py `serve_streams`, `serve_streams_grouped`).
+
+  decode   one background decode/gray thread per stream
+           (pvot_torch.io.pipeline.FramePipeline: native C++ ring +
+           bgr_to_gray_u8), all running concurrently with the card
+  stage    lockstep (S, C, H, W) uint8 chunks popped from the rings straight
+           into pinned host buffers, one pool thread per stream (the ring's
+           copies release the GIL); each chunk's copy to the card runs on a
+           side CUDA stream and ends in an event that the compute stream
+           waits on
+  compute  every chunk of every stream is one mega_track_chunk_multi call
+           (2C kernel launches for all S streams), global search included
+  records  come back with a non-blocking copy into pinned host memory and
+           are read `pipeline_depth` chunks later; a staging slot (its host
+           frames, device frames and host records) is reused only after the
+           event recorded behind the kernels that read it has completed
+
+Streams may end at different times: an ended stream's lanes carry n_valid = 0
+(the kernel commits nothing for them) until every stream is drained.
+Heterogeneous inputs (mixed frame sizes or template sizes) serve through
+serve_streams_grouped: one serve_streams call per geometry group, the groups
+in host threads of their own, each on its own CUDA streams.
+
+On the CPU the same loop runs the kernel's plain version, with plain host
+buffers and no streams.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pvot_torch.config import TrackerConfig
+from pvot_torch.io.pipeline import FramePipeline
+from pvot_torch.ops.ncc_mega import N_LANES, MegaGeometry
+from pvot_torch.parallel.multi import num_streams, stack_states, unstack_state
+from pvot_torch.tracker.mega import _rows_to_output, mega_chunk_step_multi
+from pvot_torch.tracker.state import StepOutput, TrackerState
+
+
+class _StreamFeed:
+    """One stream's decode pipeline + lockstep chunk cursor
+    (pvot/io/serving.py:48).
+
+    next_chunk(out) always fills a full (chunk_size, H, W) uint8 buffer;
+    once the stream is exhausted it keeps filling it with the held last
+    frame and returning n_real = 0, so the lockstep loop can carry live
+    streams to their own ends.  The buffer is the caller's (the serving
+    loop's pinned staging): frames go from the decode ring straight into it."""
+
+    def __init__(self, frame_iter: Iterable[np.ndarray], frame_shape, chunk_size: int):
+        self.pipe = FramePipeline(frame_iter, frame_shape, chunk_size=chunk_size)
+        self._last: Optional[np.ndarray] = None
+        self.done = False
+
+    def next_chunk(self, out: np.ndarray) -> int:
+        if not self.done:
+            n = self.pipe.fill(out)
+            if n:
+                self._last = out[n - 1].copy()
+                return n
+            self.done = True
+        out[:] = self._last if self._last is not None else 0
+        return 0
+
+    def close(self) -> None:
+        self.pipe.close()
+
+
+def _check_options(backend: str, highest: bool, devices) -> None:
+    """The JAX package's serving options that the port does not have yet
+    raise, naming their ROADMAP item; none is ignored."""
+    if backend != "mega":
+        raise NotImplementedError(
+            f"backend={backend!r}: the port serves on the mega kernel only; the "
+            "scan engines are not ported yet (ROADMAP A10)"
+        )
+    if not highest:
+        raise NotImplementedError(
+            "highest=False: the fast score tiers are not ported yet (ROADMAP A6)"
+        )
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            f"{len(devices)} devices: serving across cards is not ported yet (ROADMAP A12)"
+        )
+
+
+def _concat_outputs(outs: List[StepOutput]) -> StepOutput:
+    if not outs:
+        return StepOutput(
+            bbox=np.zeros((0, 4), np.int32), score=np.zeros((0,), np.float32),
+            used_global=np.zeros((0,), bool), updated=np.zeros((0,), bool),
+        )
+    return StepOutput(*(np.concatenate(xs) for xs in zip(*outs)))
+
+
+def serve_streams(
+    frame_iters: Sequence[Iterable[np.ndarray]],
+    states: TrackerState,
+    frame_shape: Tuple[int, int],
+    config: Optional[TrackerConfig] = None,
+    backend: str = "mega",
+    chunk_size: int = 32,
+    timings: Optional[list] = None,
+    highest: bool = True,
+    pipeline_depth: int = 2,
+    devices: Optional[Sequence] = None,
+):
+    """Serve S live frame streams end to end with decode, copy and compute
+    overlapped.
+
+    frame_iters: S iterables yielding uint8 BGR (H, W, 3) or gray (H, W)
+    frames (different lengths allowed).  states: a stacked TrackerState with
+    a leading S axis (pvot_torch.parallel.multi.init_multi_state).  The
+    streams are served on devices[0] when given, else on the states' device.
+
+    Returns (final stacked TrackerState on that device, list of S host
+    StepOutputs, one per stream, each with that stream's own frame count).
+    timings, when given a list, receives one (frames_committed, seconds) pair
+    per lockstep chunk.  pipeline_depth is how many chunks may be in flight
+    before the oldest one's records are read (1 = synchronous).
+
+    The port has the mega backend at its f32 tier on one card: another
+    backend, highest=False or several devices raise (ROADMAP A10, A6, A12)."""
+    _check_options(backend, highest, devices)
+    config = config or TrackerConfig()
+    n = num_streams(states)
+    if len(frame_iters) != n:
+        raise ValueError(f"{len(frame_iters)} frame iterators for {n} states")
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    device = torch.device(devices[0]) if devices else states.template.device
+    MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(n)
+    return _serve_streams_mega(frame_iters, states, tuple(frame_shape), config,
+                               chunk_size, timings, max(1, pipeline_depth), device)
+
+
+class _Slot:
+    """One in-flight chunk's buffers: its frames on the host (pinned when
+    serving on a card) and on the device, its records on the host, the event
+    that ends the frames' copy and the event after which all of it may be
+    reused."""
+
+    def __init__(self, frames_shape, rows_shape, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.empty(frames_shape, dtype=torch.uint8, pin_memory=cuda)
+        self.frames = (torch.empty(frames_shape, dtype=torch.uint8, device=device)
+                       if cuda else self.host)
+        self.rows = torch.empty(rows_shape, dtype=torch.float32, pin_memory=cuda)
+        self.copied = torch.cuda.Event() if cuda else None
+        self.done = torch.cuda.Event() if cuda else None
+        self.n_real: Optional[np.ndarray] = None
+
+    def wait(self) -> None:
+        """Until the kernels that read this slot and its records' copy are done."""
+        if self.done is not None:
+            self.done.synchronize()
+
+
+def _serve_streams_mega(frame_iters, states, frame_shape, config, chunk_size: int,
+                        timings: Optional[list], depth: int, device: torch.device):
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    n_streams = len(frame_iters)
+    cuda = device.type == "cuda"
+    if cuda:
+        copy_stream = torch.cuda.Stream(device)
+        compute = torch.cuda.Stream(device)
+        compute.wait_stream(torch.cuda.current_stream(device))  # the states' producers
+        on_compute = torch.cuda.stream(compute)
+    else:
+        on_compute = contextlib.nullcontext()
+    slots = [_Slot((n_streams, chunk_size, *frame_shape), (n_streams, chunk_size, N_LANES),
+                   device) for _ in range(depth + 1)]
+    feeds: List[_StreamFeed] = []
+    outs: List[list] = [[] for _ in range(n_streams)]
+    inflight: deque = deque()
+    fillers = ThreadPoolExecutor(max_workers=n_streams)
+    mark = time.perf_counter()
+
+    def drain(slot: _Slot) -> None:
+        nonlocal mark
+        slot.wait()
+        host = slot.rows.numpy()
+        committed = 0
+        for s, n in enumerate(slot.n_real.tolist()):
+            if n:
+                outs[s].append(_rows_to_output(host[s, :n]))
+                committed += n
+        now = time.perf_counter()
+        if timings is not None:
+            timings.append((committed, now - mark))
+        mark = now
+
+    try:
+        with on_compute:
+            st = states.to(device)
+        feeds.extend(_StreamFeed(it, frame_shape, chunk_size) for it in frame_iters)
+        k = 0
+        while True:
+            slot = slots[k % len(slots)]
+            slot.wait()  # its earlier chunk was drained: this returns at once
+            host = slot.host.numpy()
+            n_real = np.array(list(fillers.map(lambda s: feeds[s].next_chunk(host[s]),
+                                               range(n_streams))), np.int32)
+            if not n_real.any():
+                break
+            slot.n_real = n_real
+            if cuda:
+                with torch.cuda.stream(copy_stream):
+                    slot.frames.copy_(slot.host, non_blocking=True)
+                    slot.copied.record()
+                compute.wait_event(slot.copied)
+            with on_compute:
+                rows, st = mega_chunk_step_multi(slot.frames, st, n_real, config)
+                slot.rows.copy_(rows, non_blocking=cuda)
+                if cuda:
+                    slot.done.record()
+            inflight.append(slot)
+            k += 1
+            if len(inflight) >= depth:
+                drain(inflight.popleft())
+        while inflight:
+            drain(inflight.popleft())
+    finally:
+        fillers.shutdown()
+        for f in feeds:
+            f.close()
+    if cuda:
+        torch.cuda.current_stream(device).wait_stream(compute)
+    return st, [_concat_outputs(o) for o in outs]
+
+
+def serve_streams_grouped(
+    frame_iters: Sequence[Iterable[np.ndarray]],
+    states_list: Sequence[TrackerState],
+    frame_shapes: Sequence[Tuple[int, int]],
+    config: Optional[TrackerConfig] = None,
+    backend: str = "mega",
+    chunk_size: int = 32,
+    timings: Optional[list] = None,
+    highest: bool = True,
+    pipeline_depth: int = 2,
+    devices: Optional[Sequence] = None,
+):
+    """Serve S live streams with heterogeneous geometries
+    (pvot/io/serving.py:314): streams may differ in frame size and template
+    size.  Streams group by (frame shape, template shape); each group serves
+    through serve_streams, in its own host thread and on its own CUDA
+    streams, so the groups' launches interleave on the card.  Per-stream
+    results are those of serving each group alone.
+
+    frame_iters: S frame iterables.  states_list: S single-stream
+    TrackerStates (pvot_torch.init_state).  frame_shapes: S (H, W) pairs.
+
+    Returns (list of S final single-stream TrackerStates, list of S host
+    StepOutputs) in input order.  timings, when given, receives each group's
+    per-chunk (frames, seconds) pairs, group after group."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    _check_options(backend, highest, devices)
+    config = config or TrackerConfig()
+    n = len(frame_iters)
+    if len(states_list) != n or len(frame_shapes) != n:
+        raise ValueError(
+            f"{n} frame iterators for {len(states_list)} states / "
+            f"{len(frame_shapes)} frame shapes"
+        )
+    groups: dict = {}  # (frame_shape, templ_shape) -> [stream indices]
+    for s in range(n):
+        key = (tuple(frame_shapes[s]), tuple(states_list[s].template.shape))
+        groups.setdefault(key, []).append(s)
+    group_list = list(groups.items())
+
+    def run_group(key, idxs):
+        group_timings: Optional[list] = [] if timings is not None else None
+        final, outs = serve_streams(
+            [frame_iters[i] for i in idxs], stack_states([states_list[i] for i in idxs]),
+            key[0], config, chunk_size=chunk_size, timings=group_timings,
+            pipeline_depth=pipeline_depth, devices=devices,
+        )
+        return final, outs, group_timings
+
+    with ThreadPoolExecutor(max_workers=len(group_list)) as pool:
+        futures = [pool.submit(run_group, key, idxs) for key, idxs in group_list]
+        results = [f.result() for f in futures]
+
+    finals: list = [None] * n
+    outs_by_stream: list = [None] * n
+    for (_, idxs), (final, outs, gt) in zip(group_list, results):
+        for pos, s in enumerate(idxs):
+            finals[s] = unstack_state(final, pos)
+            outs_by_stream[s] = outs[pos]
+        if timings is not None:
+            timings.extend(gt or [])
+    return finals, outs_by_stream

@@ -1,0 +1,68 @@
+"""Host-side video decode: a copy of pvot/io/video.py `VideoReader`.
+
+OpenCV is imported when a reader opens, not when this module is imported:
+the card's machine has no OpenCV, so it serves synthetic streams only.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+from pvot_torch.io.gray import bgr_to_gray_u8
+
+
+class VideoReader:
+    """Sequential frame reader yielding uint8 BGR frames (H, W, 3)."""
+
+    def __init__(self, path: str):
+        try:
+            import cv2  # type: ignore
+        except ImportError as e:
+            raise RuntimeError("OpenCV is required for video decode") from e
+        self._cv2 = cv2
+        self._cap = cv2.VideoCapture(path)
+        if not self._cap.isOpened():
+            raise IOError(f"Cannot open video: {path}")
+        self.path = path
+
+    @property
+    def fps(self) -> float:
+        fps = self._cap.get(self._cv2.CAP_PROP_FPS)
+        # Reference falls back to 30 fps when the container reports none
+        # (tracker_ghc/src/main.cpp:327-328).
+        return fps if fps and fps > 0 else 30.0
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        """(width, height)."""
+        return (
+            int(self._cap.get(self._cv2.CAP_PROP_FRAME_WIDTH)),
+            int(self._cap.get(self._cv2.CAP_PROP_FRAME_HEIGHT)),
+        )
+
+    def read(self) -> Optional[np.ndarray]:
+        ok, frame = self._cap.read()
+        return frame if ok else None
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            frame = self.read()
+            if frame is None:
+                return
+            yield frame
+
+    def gray_frames(self) -> Iterator[np.ndarray]:
+        """Yield uint8 grayscale frames."""
+        for frame in self:
+            yield bgr_to_gray_u8(frame)
+
+    def close(self) -> None:
+        self._cap.release()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -30,13 +30,19 @@ NVCC_FLAGS = (
 _lib = None
 build_info: dict = {}  # seconds, path and compiler output of this process's load
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_CONFIG = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]  # radii .. one_minus_lr, stream
+SIGNATURES = {
     "pvot_mega_track_chunk": (
-        [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I,
-         _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+        [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
         ctypes.c_int,
     ),
+    "pvot_mega_track_chunk_multi": (
+        [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        ctypes.c_int,
+    ),
+    "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
+    "pvot_mega_score_blocks_per_sm": ([_I, _I, _I], ctypes.c_int),
     "pvot_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -91,7 +97,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
+        for name, (argtypes, restype) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype

@@ -1,16 +1,21 @@
-"""A whole chunk of single-stream tracking: the port of pvot/ops/ncc_mega.py
-`mega_track_chunk` (:818) at its f32 tier, with in-kernel global search.
+"""Whole chunks of tracking, one stream or many: the port of
+pvot/ops/ncc_mega.py `mega_track_chunk` (:818, K1) and `mega_track_chunk_multi`
+(:966, K2) at their f32 tier, with in-kernel global search.
 
-`mega_track_chunk` runs the chunk through the hand-written Hopper kernel
+`mega_track_chunk` (one stream) and `mega_track_chunk_multi` (S streams)
+run the chunk through the hand-written Hopper kernels
 (pvot_torch/csrc/ncc_mega.cu: per frame one scoring launch over the whole card
-and one commit launch, the state resident in device memory) when its
-tensors lie on a CUDA device, and through `mega_track_chunk_reference`, the
-plain PyTorch version beside it, when they lie on the CPU.  A CUDA tensor
-never reaches the plain version: there the kernel runs or the call raises.
+for every stream and one commit launch with a block per stream, the states
+resident in device memory) when their tensors lie on a CUDA device, and
+through `mega_track_chunk_reference` / `mega_track_chunk_multi_reference`,
+the plain PyTorch versions beside them, when they lie on the CPU.  A CUDA
+tensor never reaches a plain version: there the kernel runs or the call
+raises.
 
-Both return (rows (F, 10) float32, final template (th, tw) float32): the
-per-frame records in lanes O_* (pvot/ops/ncc_mega.py:78-81; O_POISON is
-always 0) and the template after the chunk's EMA updates.
+They return (rows, final templates): the per-frame records in fields O_*
+(pvot/ops/ncc_mega.py:78-81; O_POISON is always 0), (F, 10) or (S, F, 10)
+float32, and the templates after the chunk's EMA updates, (th, tw) or
+(S, th, tw) float32.
 """
 
 from __future__ import annotations
@@ -33,19 +38,36 @@ from pvot_torch.tracker.step import f32
 N_LANES = 10
 BIG = 2**30
 
+# The JAX mega kernel's envelope (pvot/ops/ncc_mega.py:148-167 MegaGeometry
+# .supported): templates up to 256 px a side, spans up to 4 x 128.
+MAX_TEMPLATE = 256
+MAX_SPAN = 512
 # Shared memory one block may use on Hopper (227 KB), and the scoring
-# kernel's tile constants (kTileH, kTileW, kSplit in csrc/ncc_mega.cu).
+# kernel's constants (kTileH, kTileW, kSplit and sizeof(LaneWork) in
+# csrc/ncc_mega.cu).
 SMEM_LIMIT = 232_448
 _TILE_H, _TILE_W, _SPLIT = 8, 16, 16
-# The commit block holds the template in registers: kCommitThreads x
-# kEmaPerThread pixels.
-MAX_TEMPLATE_PX = 1024 * 20
+_LANE_WORK_BYTES = 52
+
+
+def score_smem_bytes(rows: int, tw: int, table_lanes: int) -> int:
+    """csrc/ncc_mega.cu score_smem_bytes: the lane table (none for one
+    lane), `rows` centered template rows, their input rows with row sums, and
+    both halves' partial correlations and column sums."""
+    tw4 = -(-tw // 4) * 4
+    in_w = _TILE_W + tw4 + ((16 - (_TILE_W + tw4) % 32) + 32) % 32
+    in_h = rows + _TILE_H - 1
+    table = -(-table_lanes * _LANE_WORK_BYTES // 16) * 16 if table_lanes > 1 else 0
+    n_out = _TILE_H * _TILE_W
+    return table + 4 * (rows * tw4 + in_h * in_w + 2 * in_h * _TILE_W
+                        + 2 * _SPLIT * n_out + 4 * n_out)
 
 
 class MegaGeometry:
-    """Static shapes of one chunk and the port's envelope: the kernel stages
-    the template and one input tile in shared memory, so the template must
-    fit beside the tile."""
+    """Static shapes of one chunk and the port's envelope, which is the JAX
+    mega kernel's: templates up to 256 x 256, spans up to 512.  A score block
+    stages the whole template beside its input tile when it fits in shared
+    memory, else chunks of rows (`stage_rows`)."""
 
     def __init__(self, frame_shape, templ_shape, config: TrackerConfig):
         self.frame_h, self.frame_w = frame_shape
@@ -53,30 +75,42 @@ class MegaGeometry:
         self.out_h = self.frame_h - self.th + 1
         self.out_w = self.frame_w - self.tw + 1
         self.rx, self.ry = config.search_radius_x, config.search_radius_y
+        self.span_x, self.span_y = 2 * self.rx + 1, 2 * self.ry + 1
 
-    def smem_bytes(self) -> int:
-        """csrc/ncc_mega.cu score_smem_bytes: padded template,
-        input tile, row sums and the row groups' partial correlations."""
-        tw4 = -(-self.tw // 4) * 4
-        in_w = _TILE_W + tw4 + (16 - (_TILE_W + tw4) % 32) % 32
-        in_h, n_out = _TILE_H + self.th - 1, _TILE_H * _TILE_W
-        return 4 * (self.th * tw4 + in_h * in_w + 2 * in_h * _TILE_W + _SPLIT * n_out)
+    def stage_rows(self, table_lanes: int = 1) -> int:
+        """csrc/ncc_mega.cu stage_rows: all th rows when they fit, else the
+        fewest equal chunks of the longer half that fit; -1 if none does."""
+        if score_smem_bytes(self.th, self.tw, table_lanes) <= SMEM_LIMIT:
+            return self.th
+        half = self.th - self.th // 2
+        for n in range(1, half + 1):
+            ck = -(-half // n)
+            if score_smem_bytes(ck, self.tw, table_lanes) <= SMEM_LIMIT:
+                return ck
+        return -1
 
-    def check(self) -> "MegaGeometry":
+    def smem_bytes(self, table_lanes: int = 1) -> int:
+        return score_smem_bytes(self.stage_rows(table_lanes), self.tw, table_lanes)
+
+    def check(self, table_lanes: int = 1) -> "MegaGeometry":
         if self.out_h < 1 or self.out_w < 1:
             raise ValueError(
                 f"template {self.th}x{self.tw} larger than frame "
                 f"{self.frame_h}x{self.frame_w}"
             )
-        if self.th * self.tw > MAX_TEMPLATE_PX:
+        if (self.th > MAX_TEMPLATE or self.tw > MAX_TEMPLATE
+                or self.span_x > MAX_SPAN or self.span_y > MAX_SPAN):
             raise ValueError(
-                f"template {self.th}x{self.tw} outside the kernel's envelope: "
-                f"more than {MAX_TEMPLATE_PX} pixels"
+                f"template {self.th}x{self.tw} with spans {self.span_y}x{self.span_x} "
+                f"is outside the mega kernel's envelope (templates up to "
+                f"{MAX_TEMPLATE}x{MAX_TEMPLATE}, spans up to {MAX_SPAN}); the JAX "
+                "package serves it on its scan engines, which the port has not "
+                "yet (ROADMAP A4/A10)"
             )
-        if self.smem_bytes() > SMEM_LIMIT:
+        if self.stage_rows(table_lanes) < 1:
             raise ValueError(
-                f"template {self.th}x{self.tw} outside the kernel's envelope: "
-                f"{self.smem_bytes()} bytes of shared memory > {SMEM_LIMIT}"
+                f"{table_lanes} streams leave no shared memory for the "
+                f"{self.th}x{self.tw} template; serve fewer streams a call"
             )
         return self
 
@@ -172,6 +206,121 @@ def mega_track_chunk_reference(
     return rows.to(frames_u8.device), tpl
 
 
+def mega_track_chunk_multi_reference(
+    frames_u8: torch.Tensor,
+    bbox: torch.Tensor,
+    template: torch.Tensor,
+    t_mean: torch.Tensor,
+    t_std: torch.Tensor,
+    lost_count: torch.Tensor,
+    use_global: torch.Tensor,
+    n_valid,
+    config: TrackerConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the multi-stream kernel: `mega_track_chunk_reference`
+    on each stream with its own state and its own n_valid."""
+    n_valid = [int(v) for v in torch.as_tensor(n_valid).reshape(-1).tolist()]
+    outs = [
+        mega_track_chunk_reference(
+            frames_u8[s], bbox[s], template[s], t_mean[s], t_std[s],
+            lost_count[s], use_global[s], n_valid[s], config,
+        )
+        for s in range(frames_u8.shape[0])
+    ]
+    return torch.stack([r for r, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def _n_valid_columns(values, s: int, dev: torch.device) -> torch.Tensor:
+    """(s, 2) int32 on `dev`, each stream's n_valid twice (the last two state
+    fields), from a tensor, a sequence or a scalar, without a blocking copy:
+    a host array goes through pinned memory."""
+    if isinstance(values, torch.Tensor) and values.device == dev:
+        return values.reshape(s, 1).expand(s, 2).to(torch.int32)
+    host = torch.as_tensor(values).reshape(s, 1).to(torch.int32)
+    if bool((host == host[0]).all()):
+        return torch.full((s, 2), int(host[0]), dtype=torch.int32, device=dev)
+    host = host.expand(s, 2).contiguous()
+    if dev.type == "cuda":
+        return host.pin_memory().to(dev, non_blocking=True)
+    return host.to(dev)
+
+
+def _launch(lib, multi: bool, frames: torch.Tensor, bbox, template, t_mean, t_std,
+            lost_count, use_global, n_valid, config: TrackerConfig, n_blocks: int,
+            stream):
+    """Run one C entry on S lanes: frames (S, F, H, W) u8, each lane's frames
+    contiguous, lanes `frames.stride(0)` apart; the states stacked on S, all on
+    frames' device.  Returns (CUDA error code, rows (S, F, 10), padded
+    templates (S, th, round_up4(tw)))."""
+    s, f, h, w = frames.shape
+    th, tw = template.shape[-2:]
+    dev = frames.device
+    i32, fl = torch.int32, torch.float32
+    # state_i = [bx, by, bw, bh, lost, use_global, n_valid, _] per lane (the
+    # last field is padding); one cat, its int32 result promoted from the
+    # int32 and bool parts.  These few small ops run once per chunk.
+    state_i = torch.cat([
+        bbox.reshape(s, 4), lost_count.reshape(s, 1), use_global.reshape(s, 1),
+        _n_valid_columns(n_valid, s, dev),
+    ], dim=1).to(i32)
+    tpl = template.reshape(s, th, tw).to(fl)
+    tm = t_mean.reshape(s).to(fl)
+    # sum_tc one stream at a time, so that a stream's inputs, and so its
+    # records, do not depend on how many streams share the call.
+    sum_tc = torch.stack([torch.sum(tpl[i] - tm[i]) for i in range(s)])
+    # state_f = [t_mean, t_std, sum_tc, _] per lane (the last field is padding).
+    state_f = torch.stack([tm, t_std.reshape(s).to(fl), sum_tc, sum_tc], dim=1)
+    # The kernels update the templates in place, in their own buffer with the
+    # rows padded to a multiple of 4 columns (float4 loads); the padding
+    # columns are 0.
+    tpl_pad = (torch.empty if tw % 4 == 0 else torch.zeros)(
+        (s, th, tw + (-tw % 4)), dtype=fl, device=dev)
+    tpl_pad[:, :, :tw] = tpl
+    rows = torch.empty((s, f, N_LANES), dtype=fl, device=dev)
+    max_split = n_blocks // 2  # local tiles two blocks may share, per lane
+    part_val = torch.empty(s * n_blocks, dtype=fl, device=dev)
+    part_yx = torch.empty(2 * s * n_blocks, dtype=i32, device=dev)
+    split_part = torch.empty(max(1, s * max_split * 2 * 3 * _TILE_H * _TILE_W),
+                             dtype=fl, device=dev)
+    split_count = torch.zeros(max(1, s * max_split), dtype=i32, device=dev)
+    lr = float(config.template_update_lr)
+    tail = (rows.data_ptr(), config.search_radius_x, config.search_radius_y,
+            config.lost_frame_threshold, int(config.enable_global_search),
+            f32(config.min_confidence), f32(config.global_confidence),
+            f32(config.strong_confidence), f32(lr), f32(1.0 - lr), stream)
+    if multi:
+        err = lib.pvot_mega_track_chunk_multi(
+            frames.data_ptr(), frames.stride(0), s, f, h, w, th, tw,
+            state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(),
+            part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
+            split_part.data_ptr(), split_count.data_ptr(), *tail,
+        )
+    else:
+        err = lib.pvot_mega_track_chunk(
+            frames.data_ptr(), f, h, w, th, tw, state_i.data_ptr(), state_f.data_ptr(),
+            tpl_pad.data_ptr(), part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
+            split_part.data_ptr(), split_count.data_ptr(), *tail,
+        )
+    return err, rows, tpl_pad
+
+
+def _check_cuda_inputs(frames_u8: torch.Tensor, ndim: int, states) -> None:
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames_u8.device}")
+    if frames_u8.dtype != torch.uint8 or frames_u8.ndim != ndim:
+        raise ValueError(f"expected {ndim}-d uint8 frames, got {frames_u8.dtype} "
+                         f"{tuple(frames_u8.shape)}")
+    for name, v in states.items():
+        if v.device != frames_u8.device:
+            raise ValueError(f"{name} on {v.device}, frames on {frames_u8.device}")
+
+
+def _score_blocks(dev: torch.device) -> int:
+    """Score blocks a launch: two per SM (two 92 KB blocks fit an SM at the
+    80 x 80 headline geometry)."""
+    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def mega_track_chunk(
     frames_u8: torch.Tensor,
     bbox: torch.Tensor,
@@ -193,17 +342,9 @@ def mega_track_chunk(
             frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
             n_valid, config,
         )
-    if frames_u8.device.type != "cuda":
-        raise ValueError(f"unsupported device {frames_u8.device}")
-    if frames_u8.dtype != torch.uint8 or frames_u8.ndim != 3:
-        raise ValueError(f"expected (F, H, W) uint8 frames, got {frames_u8.dtype} "
-                         f"{tuple(frames_u8.shape)}")
-    dev = frames_u8.device
-    for name, v in (("bbox", bbox), ("template", template), ("t_mean", t_mean),
-                    ("t_std", t_std), ("lost_count", lost_count),
-                    ("use_global", use_global)):
-        if v.device != dev:
-            raise ValueError(f"{name} on {v.device}, frames on {dev}")
+    _check_cuda_inputs(frames_u8, 3, dict(
+        bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
+        lost_count=lost_count, use_global=use_global))
     frames_u8 = frames_u8.contiguous()
     f, h, w = frames_u8.shape
     th, tw = template.shape
@@ -211,48 +352,71 @@ def mega_track_chunk(
     from pvot_torch.ops import _build
 
     lib = _build.load_library()
+    dev = frames_u8.device
     with torch.cuda.device(dev):
-        i32 = torch.int32
-        state_i = torch.cat([
-            bbox.reshape(4).to(i32), lost_count.reshape(1).to(i32),
-            use_global.reshape(1).to(i32), torch.zeros(2, dtype=i32, device=dev),
-        ])
-        tpl = template.to(torch.float32)
-        tm = t_mean.reshape(()).to(torch.float32)
-        state_f = torch.stack([
-            tm, t_std.reshape(()).to(torch.float32), torch.sum(tpl - tm),
-            torch.zeros((), dtype=torch.float32, device=dev),
-        ])
-        # The kernel updates the template in place, in its own buffer with the
-        # rows padded to a multiple of 4 columns (float4 loads); the padding
-        # stays 0.
-        tpl_pad = torch.zeros((th, tw + (-tw % 4)), dtype=torch.float32, device=dev)
-        tpl_pad[:, :tw] = tpl
-        rows = torch.empty((f, N_LANES), dtype=torch.float32, device=dev)
-        n_parts = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-        part_val = torch.empty(n_parts, dtype=torch.float32, device=dev)
-        part_yx = torch.empty(2 * n_parts, dtype=i32, device=dev)
-        # Local windows are at most span_y x span_x: their tiles, two halves each.
-        max_split = (-(-(2 * config.search_radius_y + 1) // _TILE_H)
-                     * -(-(2 * config.search_radius_x + 1) // _TILE_W))
-        split_part = torch.empty(max_split * 2 * 3 * _TILE_H * _TILE_W,
-                                 dtype=torch.float32, device=dev)
-        split_count = torch.zeros(max_split, dtype=i32, device=dev)
-        lr = float(config.template_update_lr)
-        err = lib.pvot_mega_track_chunk(
-            frames_u8.data_ptr(), f, h, w, th, tw, int(n_valid),
-            state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(),
-            part_val.data_ptr(), part_yx.data_ptr(), n_parts, split_part.data_ptr(),
-            split_count.data_ptr(), max_split, rows.data_ptr(),
-            config.search_radius_x, config.search_radius_y,
-            config.lost_frame_threshold, int(config.enable_global_search),
-            f32(config.min_confidence), f32(config.global_confidence),
-            f32(config.strong_confidence), f32(lr), f32(1.0 - lr),
+        err, rows, tpl_pad = _launch(
+            lib, False, frames_u8[None], bbox, template, t_mean, t_std, lost_count,
+            use_global, [int(n_valid)], config, _score_blocks(dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, "mega_track_chunk")
         mega_track_chunk.launches += 2 * f
-    return rows, tpl_pad[:, :tw].contiguous()
+    return rows[0], tpl_pad[0, :, :tw].contiguous()
 
 
 mega_track_chunk.launches = 0
+
+
+def mega_track_chunk_multi(
+    frames_u8: torch.Tensor,
+    bbox: torch.Tensor,
+    template: torch.Tensor,
+    t_mean: torch.Tensor,
+    t_std: torch.Tensor,
+    lost_count: torch.Tensor,
+    use_global: torch.Tensor,
+    n_valid,
+    config: TrackerConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Track one chunk of S independent streams: frames (S, F, H, W) uint8
+    (each stream's frames contiguous; the stream axis may have any stride),
+    bbox (S, 4), template (S, th, tw), t_mean, t_std, lost_count, use_global
+    and n_valid (S,).  Frames t >= n_valid[s] commit nothing for stream s.
+
+    On a CUDA device: 2F kernel launches on the current stream whatever S
+    is (one score launch over every stream and one commit launch with a block
+    per stream a frame), no host synchronisation;
+    `mega_track_chunk_multi.launches` grows by 2F.  Every score block
+    grid-strides over all streams' tiles, so a stream in re-acquisition gets
+    the whole card.  On the CPU: the plain version."""
+    if frames_u8.device.type == "cpu":
+        return mega_track_chunk_multi_reference(
+            frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
+            n_valid, config,
+        )
+    _check_cuda_inputs(frames_u8, 4, dict(
+        bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
+        lost_count=lost_count, use_global=use_global))
+    s, f, h, w = frames_u8.shape
+    if frames_u8.stride()[1:] != (h * w, w, 1):
+        frames_u8 = frames_u8.contiguous()
+    th, tw = template.shape[-2:]
+    if template.shape[0] != s or bbox.shape != (s, 4):
+        raise ValueError(f"states for {template.shape[0]} streams, frames for {s}")
+    MegaGeometry((h, w), (th, tw), config).check(s)
+    from pvot_torch.ops import _build
+
+    lib = _build.load_library()
+    dev = frames_u8.device
+    with torch.cuda.device(dev):
+        err, rows, tpl_pad = _launch(
+            lib, True, frames_u8, bbox, template, t_mean, t_std, lost_count,
+            use_global, n_valid, config, _score_blocks(dev),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, "mega_track_chunk_multi")
+        mega_track_chunk_multi.launches += 2 * f
+    return rows, tpl_pad[:, :, :tw].contiguous()
+
+
+mega_track_chunk_multi.launches = 0

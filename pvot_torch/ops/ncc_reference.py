@@ -26,11 +26,12 @@ from pvot_torch.io.gray import ensure_gray_f32
 
 
 def template_stats(templ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Template mean and (population std + 1e-6), as 0-d tensors."""
+    """Template mean and (population std + 1e-6) over the last two axes:
+    0-d tensors for one (th, tw) template, (S,) for a stack of them."""
     if not templ.is_floating_point():
         templ = templ.to(torch.float32)
-    mean = templ.mean()
-    var = (templ * templ).mean() - mean * mean
+    mean = templ.mean(dim=(-2, -1))
+    var = (templ * templ).mean(dim=(-2, -1)) - mean * mean
     std = torch.sqrt(torch.clamp(var, min=0.0)) + 1e-6
     return mean, std
 

@@ -1,0 +1,175 @@
+"""ctypes bindings for the native host runtime (libpvot.so): a copy of
+pvot/runtime/native.py.
+
+Copied, not imported (importing `pvot` imports JAX).  The C++ source is
+pvot/runtime/libpvot.cpp, byte for byte; the library builds with make/g++ on
+first use into build/pvot_torch/ at the root of the checkout, not into the
+source tree.  Every entry point has a pure-numpy fallback, so the port works
+without a toolchain.  tests/test_torch_serving.py holds the copies equal to
+the originals.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_OUT = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "pvot_torch")
+_SO = os.path.join(_OUT, "libpvot.so")
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_failed = False
+
+
+def _build() -> bool:
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", _DIR, f"OUT={_OUT}"],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+        return os.path.exists(_SO)
+    except Exception:
+        return False
+
+
+def load() -> Optional[ctypes.CDLL]:
+    """Load (building if needed) the native library; None if unavailable."""
+    global _lib, _build_failed
+    with _lock:
+        if _lib is not None or _build_failed:
+            return _lib
+        # Always run make: it's a timestamp no-op when the .so is fresh and
+        # a rebuild when libpvot.cpp changed (a stale binary must never
+        # shadow source changes).  A pre-existing .so still loads when the
+        # toolchain is missing.
+        if not _build() and not os.path.exists(_SO):
+            _build_failed = True
+            return None
+        try:
+            lib = ctypes.CDLL(_SO)
+        except OSError:
+            _build_failed = True
+            return None
+        lib.pvot_bgr_to_gray_u8.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ]
+        lib.pvot_bgr_to_gray_u8_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ]
+        lib.pvot_gray_u8_to_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.pvot_ring_create.argtypes = [ctypes.c_int64, ctypes.c_int64]
+        lib.pvot_ring_create.restype = ctypes.c_void_p
+        lib.pvot_ring_destroy.argtypes = [ctypes.c_void_p]
+        lib.pvot_ring_size.argtypes = [ctypes.c_void_p]
+        lib.pvot_ring_size.restype = ctypes.c_int64
+        lib.pvot_ring_push.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.pvot_ring_push.restype = ctypes.c_int32
+        lib.pvot_ring_pop.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.pvot_ring_pop.restype = ctypes.c_int64
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def bgr_to_gray_u8(bgr: np.ndarray) -> np.ndarray:
+    """(H, W, 3) or (N, H, W, 3) uint8 BGR -> uint8 gray; native when built,
+    else the numpy fixed-point fallback from pvot_torch.io.gray."""
+    lib = load()
+    bgr = np.ascontiguousarray(bgr, np.uint8)
+    if lib is None:
+        from pvot_torch.io import gray as gray_mod
+
+        if bgr.ndim == 3:
+            return gray_mod.bgr_to_gray_u8(bgr)
+        return np.stack([gray_mod.bgr_to_gray_u8(f) for f in bgr])
+    if bgr.ndim == 3:
+        h, w, _ = bgr.shape
+        out = np.empty((h, w), np.uint8)
+        lib.pvot_bgr_to_gray_u8(
+            bgr.ctypes.data, out.ctypes.data, h, w
+        )
+        return out
+    n, h, w, _ = bgr.shape
+    out = np.empty((n, h, w), np.uint8)
+    lib.pvot_bgr_to_gray_u8_batch(bgr.ctypes.data, out.ctypes.data, n, h, w)
+    return out
+
+
+def gray_u8_to_f32(gray: np.ndarray) -> np.ndarray:
+    lib = load()
+    gray = np.ascontiguousarray(gray, np.uint8)
+    if lib is None:
+        from pvot_torch.io.gray import gray_u8_to_f32 as fallback
+
+        return fallback(gray)
+    out = np.empty(gray.shape, np.float32)
+    lib.pvot_gray_u8_to_f32(gray.ctypes.data, out.ctypes.data, gray.size)
+    return out
+
+
+class FrameRing:
+    """Native SPSC frame ring (decode thread -> device-feed thread)."""
+
+    def __init__(self, capacity: int, frame_shape):
+        self._shape = tuple(frame_shape)
+        self._frame_bytes = int(np.prod(self._shape))
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable (no toolchain?)")
+        self._lib = lib
+        self._handle = lib.pvot_ring_create(capacity, self._frame_bytes)
+        self.capacity = capacity
+
+    def push(self, frame: np.ndarray) -> bool:
+        if self._handle is None:
+            raise RuntimeError("push on a closed FrameRing")
+        frame = np.ascontiguousarray(frame, np.uint8)
+        if frame.shape != self._shape:
+            raise ValueError(f"frame shape {frame.shape} != ring {self._shape}")
+        return bool(self._lib.pvot_ring_push(self._handle, frame.ctypes.data))
+
+    def pop(self, max_frames: int) -> np.ndarray:
+        out = np.empty((max_frames, *self._shape), np.uint8)
+        return out[: self.pop_into(out)]
+
+    def pop_into(self, out: np.ndarray) -> int:
+        """Pop up to len(out) frames into `out`, a C-contiguous uint8 array
+        of whole frames (the port's addition: the serving loop pops straight
+        into its staging buffers); returns how many."""
+        if self._handle is None:
+            raise RuntimeError("pop on a closed FrameRing")
+        if out.dtype != np.uint8 or out.shape[1:] != self._shape or not out.flags.c_contiguous:
+            raise ValueError(f"pop_into needs C-contiguous uint8 (n, {self._shape}) frames")
+        return int(self._lib.pvot_ring_pop(self._handle, out.ctypes.data, len(out)))
+
+    def __len__(self) -> int:
+        if self._handle is None:
+            return 0
+        return int(self._lib.pvot_ring_size(self._handle))
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.pvot_ring_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass

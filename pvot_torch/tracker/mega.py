@@ -1,12 +1,15 @@
-"""Chunked tracking loop over the chunk kernel (pvot/tracker/mega.py
-`track_video_mega` in its in-kernel global-search mode, `mega_video_scan`).
+"""Chunked tracking loops over the chunk kernels (pvot/tracker/mega.py
+`track_video_mega` and `track_streams_mega` in their in-kernel global-search
+mode, `mega_video_scan`, `mega_chunk_step_multi`).
 
-Each chunk is one `mega_track_chunk` call; the state passes from chunk to
-chunk on the device, with its template stats re-canonicalized through
-`template_stats` at every boundary (pvot/tracker/mega.py:65-83).  Nothing
+Each chunk is one `mega_track_chunk` call, or one `mega_track_chunk_multi`
+call for S streams; the state passes from chunk to chunk on the device, with
+its template stats re-canonicalized through `template_stats` at every
+boundary (pvot/tracker/mega.py:65-83, per stream for S streams).  Nothing
 waits for the device between chunks: the records come to the host once, at
 the end.  The JAX version pads the tail chunk to one static length; here the
-tail chunk is simply shorter, which commits the same frames.
+tail chunk is simply shorter, which commits the same frames.  Global frames
+commit on the card (no poison mode, no rollback, ROADMAP R1).
 """
 
 from __future__ import annotations
@@ -19,34 +22,36 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.ops.ncc_mega import (
     O_BH, O_BW, O_BX, O_BY, O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG,
-    mega_track_chunk,
+    mega_track_chunk, mega_track_chunk_multi,
 )
 from pvot_torch.ops.ncc_reference import template_stats
 from pvot_torch.tracker.state import StepOutput, TrackerState
 
 
 def _state_from_chunk(rows: torch.Tensor, tplout: torch.Tensor) -> TrackerState:
-    """Chunk-final state from the last record and the final template."""
-    last = rows[-1]
+    """Chunk-final state from the last record and the final template: rows
+    (F, 10) and (th, tw) for one stream, or (S, F, 10) and (S, th, tw) for a
+    stacked state."""
+    last = rows[..., -1, :]
     t_mean, t_std = template_stats(tplout)
 
     def i32(lane):
-        return last[lane].to(torch.int32)
+        return last[..., lane].to(torch.int32)
 
     return TrackerState(
         bbox_x=i32(O_BX), bbox_y=i32(O_BY), bbox_w=i32(O_BW), bbox_h=i32(O_BH),
         template=tplout, t_mean=t_mean, t_std=t_std, lost_count=i32(O_LOST),
-        use_global=last[O_USEG] != 0.0,
+        use_global=last[..., O_USEG] != 0.0,
     )
 
 
 def _rows_to_output(rows: np.ndarray) -> StepOutput:
-    """Host records (F, 10) -> StepOutput."""
+    """Host records (..., 10) -> StepOutput with the records' leading axes."""
     return StepOutput(
-        bbox=rows[:, O_BX : O_BX + 4].astype(np.int32),
-        score=rows[:, O_SCORE].copy(),
-        used_global=rows[:, O_GUSED] != 0.0,
-        updated=rows[:, O_UPDATED] != 0.0,
+        bbox=rows[..., O_BX : O_BX + 4].astype(np.int32),
+        score=rows[..., O_SCORE].copy(),
+        used_global=rows[..., O_GUSED] != 0.0,
+        updated=rows[..., O_UPDATED] != 0.0,
     )
 
 
@@ -81,3 +86,65 @@ def track_video_mega(
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, 10), np.float32))
     return cur, _rows_to_output(torch.cat(all_rows).cpu().numpy())
+
+
+def mega_chunk_step_multi(
+    chunk: torch.Tensor,
+    states: TrackerState,
+    n_valid,
+    config: TrackerConfig,
+) -> Tuple[torch.Tensor, TrackerState]:
+    """One chunk of S streams (pvot/tracker/mega.py:183): chunk (S, C, H, W)
+    uint8 on the states' device, a stacked state, n_valid per stream (S,) or
+    one count for all.  Returns (rows (S, C, 10) on the device, the
+    chunk-final stacked state)."""
+    s = int(states.t_mean.shape[0])
+    if isinstance(n_valid, int):
+        n_valid = [n_valid] * s
+    rows, tplout = mega_track_chunk_multi(
+        chunk, torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
+        states.t_std, states.lost_count, states.use_global, n_valid, config,
+    )
+    return rows, _state_from_chunk(rows, tplout)
+
+
+def track_streams_mega(
+    videos,
+    states: TrackerState,
+    config: TrackerConfig = TrackerConfig(),
+    chunk_size: int = 256,
+    batch: int = 1,
+    device=None,
+) -> Tuple[TrackerState, StepOutput]:
+    """Track S independent pre-decoded streams (S, F, H, W) uint8 together on
+    `device` (default: the states' device): every chunk is one
+    `mega_track_chunk_multi` call for all S streams.
+
+    `states` is a stacked state (pvot_torch.parallel.multi.init_multi_state).
+    Returns (final stacked state on `device`, StepOutput with the (F, S)
+    leading layout), as pvot.tracker.mega.track_streams_mega does.  The
+    look-ahead batch cadence is not ported yet: `batch` > 1 raises."""
+    if batch != 1:
+        raise NotImplementedError(
+            f"batch={batch}: the look-ahead batch cadence is not ported yet (ROADMAP A7)"
+        )
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    device = torch.device(device) if device is not None else states.template.device
+    videos = torch.as_tensor(videos, device=device)
+    if videos.ndim != 4 or videos.dtype != torch.uint8:
+        raise ValueError(f"expected (S, F, H, W) uint8 videos, got {videos.dtype} "
+                         f"{tuple(videos.shape)}")
+    s, f = videos.shape[:2]
+    if int(states.t_mean.shape[0]) != s:
+        raise ValueError(f"{s} videos for {int(states.t_mean.shape[0])} states")
+    cur = states.to(device)
+    all_rows = []
+    for start in range(0, f, chunk_size):
+        chunk = videos[:, start : start + chunk_size]
+        rows, cur = mega_chunk_step_multi(chunk, cur, chunk.shape[1], config)
+        all_rows.append(rows)
+    if not all_rows:
+        return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
+    host = torch.cat(all_rows, dim=1).cpu().numpy()  # (S, F, 10)
+    return cur, _rows_to_output(host.transpose(1, 0, 2))

@@ -38,9 +38,46 @@ def test_port_imports_without_jax_or_pvot():
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["n"] >= 12  # every module of the package was imported
+    assert got["n"] >= 25  # every module of the package was imported
     assert got["bad"] == [], f"pvot_torch pulled in {got['bad']}"
     assert got["unbuilt"], "importing pvot_torch loaded the kernel library"
+
+
+_LAZY = """
+import json, sys
+import pvot_torch
+before = sorted(m for m in ("pvot_torch.io.serving", "pvot_torch.io.pipeline")
+                if m in sys.modules)
+from pvot_torch.io import serving
+from pvot_torch.tracker import mega
+same = [pvot_torch.serve_streams is serving.serve_streams,
+        pvot_torch.serve_streams_grouped is serving.serve_streams_grouped,
+        pvot_torch.track_streams_mega is mega.track_streams_mega]
+try:
+    pvot_torch.serve_objects
+    missing = False
+except AttributeError:
+    missing = True
+print(json.dumps({"before": before, "same": same, "missing": missing}))
+"""
+
+
+def test_serving_entry_points_load_lazily():
+    """`import pvot_torch` loads the serving modules (and their decode
+    threads' pipeline) only when their entry points are first asked for, as
+    pvot/__init__.py:31-64 does; a name the port does not have raises
+    AttributeError; the console script names the port's CLI."""
+    import tomllib
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _LAZY], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"before": [], "same": [True, True, True], "missing": True}
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["pvot-torch-serve"] == "pvot_torch.cli.serve:main"
 
 
 def test_tracker_config_matches_pvot():

@@ -1,0 +1,227 @@
+"""The multi-stream chunk kernel's plain version and the repaired envelope of
+the chunk kernel, against the JAX package.
+
+Oracle: pvot.tracker.scan.track_video(strategy="fused", backend="xla") per
+stream, as tests/test_serving.py uses it; no Pallas interpret call.  Inputs:
+the tests/test_serving.py geometry (250x94 frames, 16x16 template, radius 8),
+made from seeds with the synthetic generator.  Tolerance, as the tracker's
+equality contract (pvot/tracker/mega.py _outputs_equal): bbox, updated and
+used_global exactly; accepted scores within 1e-5 and all scores within 2e-3
+for templates up to 80x80 px, both scaled by N / 6400 above that (an f32 sum
+of N products carries a rounding error that grows with N); templates within
+1e-6.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pvot_torch
+from pvot.config import TrackerConfig as JaxConfig
+from pvot.io.gray import gray_u8_to_f32
+from pvot.io.synthetic import SyntheticSpec, generate_gray_video, target_bbox
+from pvot.tracker.scan import track_video as jax_track_video
+from pvot.tracker.state import init_state as jax_init_state
+from pvot_torch.convert import state_from_numpy
+from pvot_torch.ops.ncc_mega import (
+    O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, MegaGeometry, mega_track_chunk,
+    mega_track_chunk_multi, mega_track_chunk_multi_reference, mega_track_chunk_reference,
+)
+from pvot_torch.parallel.multi import stack_states
+
+H, W, T = 94, 250, 16
+KW = dict(search_radius_x=8, search_radius_y=8, lost_frame_threshold=3)
+F = 12
+# Stream 1 leaves the frame and is found again by global search; stream 2
+# has ended (n_valid 0); stream 0 runs the whole chunk, stream 3 part of it.
+N_VALID = [F, F, 0, 7]
+SPECS = [dict(seed=3), dict(seed=3, exit_and_reenter=True), dict(seed=5), dict(seed=6)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread each, so that parallel
+    test workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _clip(frames_after: int, h=H, w=W, t=T, **kw):
+    """(frames (n+1, h, w) u8, JAX initial state, its numpy dict)."""
+    spec = SyntheticSpec(width=w, height=h, num_frames=frames_after + 1, target_w=t,
+                         target_h=t, noise_std=1.0, **kw)
+    frames = generate_gray_video(spec)
+    x, y, bw, bh = target_bbox(spec, 0)
+    st = jax_init_state(jnp.asarray(gray_u8_to_f32(frames[0])[y : y + bh, x : x + bw]),
+                        (x, y, bw, bh))
+    return frames, st, {k: np.asarray(v) for k, v in st._asdict().items()}
+
+
+@pytest.fixture(scope="module")
+def streams():
+    """Per stream: (frames, start state as numpy, JAX out over its valid
+    frames, JAX final state as numpy)."""
+    out = []
+    cfg = JaxConfig(**KW)
+    for kw, nv in zip(SPECS, N_VALID):
+        frames, st, start = _clip(F, **kw)
+        js, jo = jax_track_video(frames[1 : 1 + nv], st, cfg, strategy="fused",
+                                 backend="xla", chunk_size=4)
+        out.append((frames, start, jo, {k: np.asarray(v) for k, v in js._asdict().items()}))
+    return out
+
+
+def _multi_args(streams):
+    states = stack_states([state_from_numpy(s[1]) for s in streams])
+    frames = torch.from_numpy(np.stack([s[0][1:] for s in streams]))
+    return frames, (torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
+                    states.t_std, states.lost_count, states.use_global)
+
+
+def _assert_rows(rows, want, n_px=T * T):
+    rows = np.asarray(rows)
+    scale = max(1.0, n_px / 6400)
+    np.testing.assert_array_equal(rows[:, :4].astype(np.int32), want.bbox)
+    np.testing.assert_array_equal(rows[:, O_UPDATED] != 0, want.updated)
+    np.testing.assert_array_equal(rows[:, O_GUSED] != 0, want.used_global)
+    acc = np.asarray(want.updated)
+    np.testing.assert_allclose(rows[acc, O_SCORE], np.asarray(want.score)[acc], atol=1e-5 * scale)
+    np.testing.assert_allclose(rows[:, O_SCORE], np.asarray(want.score), atol=2e-3 * scale)
+
+
+def test_fixture_covers_global_search(streams):
+    jo = streams[1][2]
+    assert jo.used_global.any() and (jo.used_global & jo.updated).any()
+    assert (jo.used_global & ~jo.updated).any()
+
+
+def test_plain_multi_matches_jax_per_stream(streams):
+    frames, args = _multi_args(streams)
+    rows, tpl = mega_track_chunk_multi_reference(frames, *args, N_VALID,
+                                                 pvot_torch.TrackerConfig(**KW))
+    assert rows.shape == (4, F, 10) and tpl.shape == (4, T, T)
+    for s, (_, start, jo, js) in enumerate(streams):
+        nv = N_VALID[s]
+        _assert_rows(rows[s, :nv], jo)
+        np.testing.assert_allclose(tpl[s].numpy(), js["template"], atol=1e-6)
+        # Frames past n_valid commit nothing: the state lanes hold.
+        held = rows[s, nv - 1] if nv else torch.tensor(
+            [float(start[k]) for k in ("bbox_x", "bbox_y", "bbox_w", "bbox_h")]
+            + [0, 0, 0, float(start["lost_count"]), float(start["use_global"]), 0])
+        for t in range(nv, F):
+            for lane in (0, 1, 2, 3, O_LOST, O_USEG):
+                assert rows[s, t, lane] == held[lane]
+            assert rows[s, t, O_UPDATED] == 0 and rows[s, t, O_GUSED] == 0
+    np.testing.assert_array_equal(tpl[2].numpy(), streams[2][1]["template"])
+
+
+def test_multi_wrapper_on_cpu_is_the_plain_version(streams):
+    frames, args = _multi_args(streams)
+    cfg = pvot_torch.TrackerConfig(**KW)
+    before = mega_track_chunk_multi.launches
+    got = mega_track_chunk_multi(frames, *args, torch.tensor(N_VALID), cfg)
+    want = mega_track_chunk_multi_reference(frames, *args, N_VALID, cfg)
+    assert mega_track_chunk_multi.launches == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("templ,radius,ok", [
+    ((256, 256), 255, True), ((160, 160), 160, True), ((256, 1), 0, True),
+    ((257, 256), 8, False), ((256, 257), 8, False), ((80, 80), 256, False),
+])
+def test_envelope_is_the_jax_mega_envelope(templ, radius, ok):
+    cfg = pvot_torch.TrackerConfig(search_radius_x=radius, search_radius_y=radius)
+    g = MegaGeometry((1080, 1920), templ, cfg)
+    assert g.span_x == 2 * radius + 1
+    if ok:
+        g.check()
+        assert 1 <= g.stage_rows() <= templ[0] and g.smem_bytes() <= 232_448
+    else:
+        with pytest.raises(ValueError, match="A4/A10"):
+            g.check()
+
+
+def test_stage_rows_chunk_large_templates():
+    """Templates whose rows do not fit beside their input tile stage in
+    chunks of their halves; 80x80 stages whole, as before."""
+    cfg = pvot_torch.TrackerConfig()
+    assert MegaGeometry((720, 1280), (80, 80), cfg).stage_rows() == 80
+    assert MegaGeometry((1080, 1920), (160, 160), cfg).stage_rows() == 80
+    assert MegaGeometry((720, 1280), (256, 256), cfg).stage_rows() == 64
+    # The lane table of a many-stream call takes shared memory too; a
+    # one-stream call has none.
+    assert MegaGeometry((720, 1280), (143, 143), cfg).stage_rows(1) == 143
+    assert MegaGeometry((720, 1280), (143, 143), cfg).stage_rows(256) < 143
+
+
+def test_plain_chunk_160_template_matches_jax():
+    """The repaired envelope on the plain K1: a 160x160 template, which the
+    port raised on before."""
+    frames, st, start = _clip(4, h=200, w=260, t=160, seed=9)
+    kw = dict(search_radius_x=6, search_radius_y=6)
+    js, jo = jax_track_video(frames[1:], st, JaxConfig(**kw), strategy="fused",
+                             backend="xla", chunk_size=4)
+    s = state_from_numpy(start)
+    rows, tpl = mega_track_chunk_reference(
+        torch.from_numpy(frames[1:]), torch.stack(list(s.bbox)), s.template, s.t_mean,
+        s.t_std, s.lost_count, s.use_global, 4, pvot_torch.TrackerConfig(**kw))
+    assert jo.updated.any()
+    _assert_rows(rows, jo, n_px=160 * 160)
+    np.testing.assert_allclose(tpl.numpy(), np.asarray(js.template), atol=1e-6)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_cuda_multi_kernel_matches_plain_and_k1(streams, cuda_device):
+    frames, args = _multi_args(streams)
+    frames = frames.to(cuda_device)
+    args = tuple(a.to(cuda_device) for a in args)
+    cfg = pvot_torch.TrackerConfig(**KW)
+    before = mega_track_chunk_multi.launches
+    rows, tpl = mega_track_chunk_multi(frames, *args, N_VALID, cfg)
+    assert mega_track_chunk_multi.launches == before + 2 * F
+    want_rows, want_tpl = mega_track_chunk_multi_reference(frames, *args, N_VALID, cfg)
+    for s in range(4):
+        r = rows[s].cpu().numpy()
+        w = want_rows[s].cpu().numpy()
+        for lane in (0, 1, 2, 3, O_UPDATED, O_LOST, O_USEG, O_GUSED):
+            np.testing.assert_array_equal(r[:, lane], w[:, lane])
+        np.testing.assert_allclose(r[:, O_SCORE], w[:, O_SCORE], atol=2e-3)
+        # Each stream's records are K1's on that stream, bit for bit.
+        k1 = mega_track_chunk(frames[s], *(a[s] for a in args), N_VALID[s], cfg)
+        assert torch.equal(k1[0], rows[s])
+    np.testing.assert_allclose(tpl.cpu().numpy(), want_tpl.cpu().numpy(), atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_staging_matches_k1(cuda_device):
+    """A 176x256 template stages half by half for one stream and in quarters
+    for 200 (their lane table takes the room): each stream's records and
+    template are still K1's, bit for bit."""
+    from pvot_torch.bench import state_at
+    from pvot_torch.io.synthetic import SyntheticSpec as TorchSpec
+    from pvot_torch.io.synthetic import generate_gray_video as torch_video
+
+    spec = TorchSpec(width=270, height=200, num_frames=4, target_w=256, target_h=176, seed=9)
+    frames = torch_video(spec)
+    cfg = pvot_torch.TrackerConfig(search_radius_x=6, search_radius_y=6)
+    g = MegaGeometry((200, 270), (176, 256), cfg)
+    assert g.stage_rows(1) == 88 and g.stage_rows(200) < 88
+    s = state_at(spec, frames, 0, cuda_device)
+    one = (torch.stack(list(s.bbox)), s.template, s.t_mean, s.t_std, s.lost_count,
+           s.use_global)
+    clip = torch.from_numpy(frames[1:]).to(cuda_device)
+    k1 = mega_track_chunk(clip, *one, 3, cfg)
+    many = tuple(v.expand(200, *v.shape).contiguous() for v in one)
+    rows, tpl = mega_track_chunk_multi(clip.expand(200, *clip.shape), *many, [3] * 200, cfg)
+    assert torch.equal(rows, k1[0].expand_as(rows)) and torch.equal(tpl, k1[1].expand_as(tpl))

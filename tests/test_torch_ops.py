@@ -170,8 +170,13 @@ def test_wrapper_takes_plain_version_only_on_cpu(rng):
 def test_envelope_raises_outside_shared_memory():
     config = TrackerConfig()
     assert MegaGeometry((720, 1280), (80, 80), config).check().smem_bytes() < 232_448
+    # A 200x200 template no longer fits beside its tile: it stages in chunks.
+    big = MegaGeometry((720, 1280), (200, 200), config).check()
+    assert big.stage_rows() < 200 and big.smem_bytes() <= 232_448
     with pytest.raises(ValueError, match="envelope"):
-        MegaGeometry((720, 1280), (200, 200), config).check()
+        MegaGeometry((720, 1280), (257, 200), config).check()
+    with pytest.raises(ValueError, match="shared memory"):
+        MegaGeometry((720, 1280), (200, 200), config).check(table_lanes=5000)
     with pytest.raises(ValueError, match="larger than frame"):
         MegaGeometry((40, 40), (41, 8), config).check()
 

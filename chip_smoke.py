@@ -18,7 +18,10 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      720p / 80x80 / r=60, (b) a 720p clip whose target leaves and re-enters
      the frame (lost_frame_threshold=5), which must contain global frames,
      (c) the repaired envelope: 1080p / 160x160 / r=160 on a re-acquisition
-     clip with global frames, and a 256x256 template at 720p; time (a), (b);
+     clip with global frames, and a 256x256 template at 720p; time (a), and
+     per frame over short chunks beside their bounds: global frames at 720p
+     and 1080p held in global search by a template that matches nothing,
+     and local frames at 1080p/160/r160;
   4. hold the multi-stream kernel K2 against its plain version: S = 4 at
      720p / 80x80 / r=60, one stream local, one re-acquiring, one ended
      (n_valid 0), one partial; 2F launches per chunk; each stream's records
@@ -26,22 +29,47 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      same 48 steps; time S = 8 with one stream held in global search; and
      hold 200 streams of a 176x256 template (staged in quarters: their lane
      table takes the room) bit-equal to K1 (staged in halves);
-  5. drive the main path, pvot_torch.track_video_mega, over the bench clip
+  5. the multi-object kernel K3 (K trackers over one clip), its states built
+     with no device argument (they must land on the card): (a) K = 4 at
+     720p / 80x80 / r60 over a 48-frame chunk of the bench clip with two
+     static patches stamped in: the target, the two patches, and one object
+     started outside the frame that must search globally; (b) the same four
+     roles with templates of 80x80, 64x48, 48x64 and 32x32 in a shared
+     bucket; each held against its plain version under the contract, each
+     object's records and template bit-equal to K1 on that object alone at
+     its true extent, and 2F launches; (a) and (b) timed, kernel and plain,
+     over the same 48 steps beside their bounds; (c) at 1080p a 176x176
+     bucket (176x176, 64x48 and 32x32 from outside the frame), which stages
+     in row chunks, each object bit-equal to K1 alone, timed; (d) K = 8 all
+     local beside its bound, and K = 8 with one object held in global
+     search, over the same 48 steps; (e) serve_objects with 8 objects over
+     1024 frames of the bench clip, all from the ground-truth box, with the
+     launch counters reset just before: 0 px off the ground truth, equal to
+     track_objects_mega, only K3 launched and twice per frame; frames/s
+     beside the device path's;
+  6. drive the main path, pvot_torch.track_video_mega, over the bench clip
      (2048 frames, chunk 512), with the launch counters reset just before:
-     the trajectory must be 0 px off the ground truth and K1 must have
-     launched twice per frame;
-  6. drive serving, pvot_torch.serve_streams, over 8 streams cut at spread
+     the trajectory must be 0 px off the ground truth, K1 must have launched
+     twice per frame, and K2 and K3 not at all;
+  7. drive serving, pvot_torch.serve_streams, over 8 streams cut at spread
      offsets from the bench clip with unequal lengths, each from its
      ground-truth box, with the launch counters reset just before: every
      stream 0 px off the ground truth and equal, under the contract, to
      track_video_mega on that stream alone; K2 must have launched twice per
-     frame step; print aggregate and per-stream frames/s;
-  7. print the kernels' JSON line, the card's line, and last the result line.
+     frame step, K1 and K3 not at all; print aggregate and per-stream
+     frames/s;
+  8. print the kernels' JSON line (each kernel's time beside its plain
+     version's and its bound: the larger of its correlation FLOPs at the
+     FP32 peak and its bytes at the memory rate, counted from this run's
+     records; `library_ms` is null, as no PyTorch call computes a chunk of
+     tracking, and `conv2d_corr_ms` times F.conv2d on the correlation term
+     alone as a yardstick), the card's line, and last the result line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -127,22 +155,68 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from pvot_torch.bench import (
-        bench_clip, gpu_identity, run_bench, state_at, stream_cuts, stream_err_px, stream_states,
+        bench_clip, bound_ms, gpu_identity, max_l1_err_px, run_bench, scored_positions, state_at,
+        stream_cuts, stream_err_px, stream_states,
     )
 
     smi = gpu_identity()[0]
     print(f"gpu: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from pvot_torch.config import TrackerConfig
-    from pvot_torch.io.serving import serve_streams
-    from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_video
+    from pvot_torch.io.gray import gray_u8_to_f32
+    from pvot_torch.io.serving import serve_objects, serve_streams
+    from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_video, target_bbox
     from pvot_torch.ops import _build
     from pvot_torch.ops.ncc_mega import (
         MegaGeometry, mega_track_chunk, mega_track_chunk_multi,
-        mega_track_chunk_multi_reference, mega_track_chunk_reference,
+        mega_track_chunk_multi_reference, mega_track_chunk_objects,
+        mega_track_chunk_objects_reference, mega_track_chunk_reference,
     )
-    from pvot_torch.parallel.multi import unstack_state
-    from pvot_torch.tracker.mega import track_video_mega
+    from pvot_torch.parallel.multi import (
+        init_multi_state, init_multi_state_bucketed, stack_states, unstack_state,
+    )
+    from pvot_torch.tracker.mega import track_objects_mega, track_video_mega
+    from pvot_torch.tracker.state import init_state
+
+    kernels = (mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects)
+
+    def reset_counts():
+        for kernel in kernels:
+            kernel.launches = 0
+
+    def chunk_bound(lanes, n_steps, frame_bytes):
+        """(ms per step, what bounds it) of the least time for lanes [(start
+        bbox, host rows (F, 10), n_valid, frame shape, template shape,
+        config)] that read frame_bytes of frames once."""
+        fma = other_bytes = 0
+        for start, rows, nv, fshape, tshape, cfg in lanes:
+            fma += tshape[0] * tshape[1] * scored_positions(
+                start, rows[:nv, :4], rows[:nv, 9] != 0, fshape, tshape, cfg)
+            other_bytes += 2 * 4 * tshape[0] * tshape[1] + 40 * len(rows)
+        least, by = bound_ms(fma, frame_bytes + other_bytes)
+        return least / n_steps, by
+
+    def windows_of(clip, start, rows, th, tw, radius):
+        """Each frame's input to its local window, (F, 1, th + 2r, tw + 2r),
+        from the box it starts from (clamped into the frame)."""
+        h, w = clip.shape[1:]
+        boxes = np.concatenate([np.asarray(start)[None], rows[:-1, :4]]).astype(int)
+        out = []
+        for t, (x, y, bw, bh) in enumerate(boxes.tolist()):
+            y0 = min(max(0, y + bh // 2 - th // 2 - radius), h - th - 2 * radius)
+            x0 = min(max(0, x + bw // 2 - tw // 2 - radius), w - tw - 2 * radius)
+            out.append(clip[t, y0 : y0 + th + 2 * radius, x0 : x0 + tw + 2 * radius])
+        return torch.stack(out).float()[:, None] / 255.0
+
+    def conv2d_corr_ms(windows, templates, repeats=5):
+        """F.conv2d on the correlation term alone over windows (N, K, h, w)
+        against K templates (K, th, tw), per row of windows: the nearest
+        PyTorch call, a yardstick that the port never calls."""
+        import torch.nn.functional as tnf
+
+        weight = templates[:, None].contiguous()
+        return time_ms(lambda: tnf.conv2d(windows, weight, groups=len(weight)),
+                       repeats) / len(windows)
 
     # Phase 2.
     t0 = time.perf_counter()
@@ -150,14 +224,18 @@ def main() -> int:
     print(f"build: {_build.build_info['path']} loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_info['seconds']:.1f} s)")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "bytes stack" in line:
+        entry = re.search(r"(score_kernel|commit_kernel)(?:I((?:Lb[01]E)+)E)?", line)
+        if "Compiling entry" in line and entry:  # score_kernel<kWhole, kOne, kExt> etc.
+            flags = ",".join(re.findall(r"Lb([01])", entry.group(2) or ""))
+            print(f"  ptxas: {entry.group(1)}" + (f"<{flags}>" if flags else ""))
+        elif "registers" in line or "bytes stack" in line:
             print("  ptxas:", line.strip())
     for th, lanes in ((80, 1), (80, 8), (160, 1), (256, 1)):
         print(f"  score blocks per SM, {th}x{th} template, {lanes} lane(s): "
               f"{lib.pvot_mega_score_blocks_per_sm(th, th, lanes)}")
     # The wrapper's envelope check mirrors the kernel's shared-memory plan.
     for th, tw, lanes in ((80, 80, 1), (80, 80, 8), (143, 143, 1), (143, 143, 256),
-                          (160, 160, 1), (256, 256, 1), (256, 256, 64)):
+                          (160, 160, 1), (176, 176, 3), (256, 256, 1), (256, 256, 64)):
         mirror = MegaGeometry((1080, 1920), (th, tw), TrackerConfig()).stage_rows(lanes)
         if lib.pvot_mega_stage_rows(th, tw, lanes) != mirror:
             raise AssertionError(f"stage_rows({th}, {tw}, {lanes}): kernel "
@@ -179,7 +257,13 @@ def main() -> int:
     n = chunk.shape[0]
     ms = time_ms(lambda: mega_track_chunk(*args), 10) / n
     plain_ms = time_ms(lambda: mega_track_chunk_reference(*args), 1) / n
-    print(f"K1 local frames (720p/80/r60), ms per frame: kernel {ms:.5f}, plain {plain_ms:.5f}")
+    k1_rows = mega_track_chunk(*args)[0].cpu().numpy()
+    k1_start = args[1].tolist()
+    k1_bound, k1_by = chunk_bound([(k1_start, k1_rows, n, frames.shape[1:], (80, 80), config)],
+                                  n, chunk.numel())
+    k1_conv = conv2d_corr_ms(windows_of(chunk, k1_start, k1_rows, 80, 80, 60), args[2][None])
+    print(f"K1 local frames (720p/80/r60), ms per frame: kernel {ms:.5f}, plain {plain_ms:.5f}, "
+          f"bound {k1_bound:.5f} ({k1_by}); F.conv2d on the correlation term alone {k1_conv:.5f}")
 
     gspec = SyntheticSpec(width=1280, height=720, num_frames=49, target_w=80,
                           target_h=80, seed=2, exit_and_reenter=True)
@@ -193,12 +277,27 @@ def main() -> int:
         raise AssertionError("re-acquisition clip ran no global frame")
     k1_err = max(k1_err, compare("K1 parity 720p re-acquisition clip", got,
                                  mega_track_chunk_reference(*gargs)))
-    one = chunk_args(chunk[:1], gstate._replace(use_global=torch.tensor(True, device=dev)),
-                     gconfig)
-    g_ms = time_ms(lambda: mega_track_chunk(*one), 10)
-    g_plain_ms = time_ms(lambda: mega_track_chunk_reference(*one), 3)
-    print(f"K1 one global frame (720p/80, 641x1201 positions), ms: kernel {g_ms:.4f}, "
-          f"plain {g_plain_ms:.4f}")
+    # Global frames timed over a chunk held in global search (a noise
+    # template matches nothing), so the host's enqueue hides behind the card.
+    noise160 = np.random.default_rng(8).random((160, 160), dtype=np.float32)
+
+    def held_global(frames_u8, templ, cfg):
+        held = init_state(noise160[:templ, :templ], (600, 300, templ, templ))._replace(
+            use_global=torch.tensor(True, device=dev))
+        hargs = chunk_args(frames_u8, held, cfg)
+        hrows = mega_track_chunk(*hargs)[0].cpu().numpy()
+        if not (hrows[:, 9] != 0).all():
+            raise AssertionError(f"a {templ}x{templ} held template left global search")
+        return hargs, hrows
+
+    gh = 16
+    hargs, hrows = held_global(chunk[:gh], 80, config)
+    g_ms = time_ms(lambda: mega_track_chunk(*hargs), 3) / gh
+    g_plain_ms = time_ms(lambda: mega_track_chunk_reference(*hargs), 1) / gh
+    g_bound = chunk_bound([(hargs[1].tolist(), hrows, gh, frames.shape[1:], (80, 80), config)],
+                          gh, hargs[0].numel())[0]
+    print(f"K1 global frames (720p/80, 641x1201 positions), ms per frame over {gh}: kernel "
+          f"{g_ms:.4f}, plain {g_plain_ms:.4f}, bound {g_bound:.4f}")
 
     # The repaired envelope: 1080p / 160 x 160 / r160 (the JAX suite's
     # 1080p_t160_r160 geometry) with global frames, and a 256 x 256 template.
@@ -218,12 +317,21 @@ def main() -> int:
         raise AssertionError("1080p/160 check ran no global frame")
     k1_err = max(k1_err, compare("K1 parity 1080p/160 global frames", got,
                                  mega_track_chunk_reference(*bglob), 160 * 160))
-    b_local = chunk_args(bargs[0][:1], bstate, bconfig)
-    b_ms = time_ms(lambda: mega_track_chunk(*b_local), 5)
-    b_global = chunk_args(bargs[0][:1], bstate._replace(
-        use_global=torch.tensor(True, device=dev)), bconfig)
-    bg_ms = time_ms(lambda: mega_track_chunk(*b_global), 3)
-    print(f"K1 1080p/160/r160, ms: a local frame {b_ms:.4f}, a global frame {bg_ms:.4f}")
+    # The template's own frame six times over: every frame local, on the target.
+    b_local = chunk_args(torch.from_numpy(bframes[:1]).to(dev).expand(6, -1, -1).contiguous(),
+                         bstate, bconfig)
+    b_rows = mega_track_chunk(*b_local)[0].cpu().numpy()
+    if (b_rows[:, 9] != 0).any():
+        raise AssertionError("1080p/160 local timing chunk left local tracking")
+    b_ms = time_ms(lambda: mega_track_chunk(*b_local), 5) / 6
+    b_bound = chunk_bound([(b_local[1].tolist(), b_rows, 6, bframes.shape[1:], (160, 160),
+                            bconfig)], 6, b_local[0].numel())[0]
+    b_global, bg_rows = held_global(b_local[0][:4], 160, bconfig)
+    bg_ms = time_ms(lambda: mega_track_chunk(*b_global), 3) / 4
+    bg_bound = chunk_bound([(b_global[1].tolist(), bg_rows, 4, bframes.shape[1:], (160, 160),
+                             bconfig)], 4, b_global[0].numel())[0]
+    print(f"K1 1080p/160/r160, ms per frame: local {b_ms:.4f} (bound {b_bound:.4f}), global "
+          f"{bg_ms:.4f} (bound {bg_bound:.4f})")
     sspec = SyntheticSpec(width=1280, height=720, num_frames=4, target_w=256, target_h=256, seed=4)
     sframes = generate_gray_video(sspec)
     sconfig = TrackerConfig(search_radius_x=40, search_radius_y=40)
@@ -256,8 +364,13 @@ def main() -> int:
     k2_plain_ms = time_ms(lambda: mega_track_chunk_multi_reference(
         fr4, *st4, nv4, gconfig), 1) / f4
     n_global = int(got[0][1, :, 9].sum())
+    k2_rows = got[0].cpu().numpy()
+    k2_bound, k2_by = chunk_bound(
+        [(st4[0][s_].tolist(), k2_rows[s_], int(nv4[s_]), frames.shape[1:], (80, 80), gconfig)
+         for s_ in range(4)], f4, fr4.numel())
     print(f"K2 S=4 (one stream global on {n_global} of {f4} steps), ms per frame step over "
-          f"the same {f4} steps: kernel {k2_ms:.5f}, plain {k2_plain_ms:.5f}")
+          f"the same {f4} steps: kernel {k2_ms:.5f}, plain {k2_plain_ms:.5f}, "
+          f"bound {k2_bound:.5f} ({k2_by})")
     f8 = torch.stack([torch.from_numpy(frames[64 * i + 1 : 64 * i + 33]) for i in range(8)]).to(dev)
     st8 = list(stacked_args([state_at(spec, frames, 64 * i, dev) for i in range(8)]))
     st8[5] = st8[5].clone()
@@ -288,9 +401,163 @@ def main() -> int:
     print(f"K2 176x256, 200 streams staged in chunks of {cgeom.stage_rows(200)} rows: "
           f"bit-equal to K1 staged in halves ({int(k1[0][:, 5].sum())} of 3 frames accepted)")
 
-    # Phase 5 (run_bench sets the launch counters to 0 just before the main
-    # path's checked run and reads them just after).
+    # Phase 5: K3.  Two static patches stamped into a copy of the clip's
+    # first frames; the fourth object's template is cut from a third patch
+    # and it starts outside the frame.
+    of = 48
+    oclip = frames[: of + 1].copy()
+    prng = np.random.default_rng(7)
+    for px, py in ((200, 100), (900, 500), (600, 80)):
+        oclip[:, py : py + 80, px : px + 80] = prng.integers(0, 256, (80, 80), np.uint8)
+    g0 = gray_u8_to_f32(oclip[0])
+    tx, ty = target_bbox(spec, 0)[:2]
+    cut_at = [(tx, ty), (200, 100), (900, 500), (600, 80)]
+    start_at = [(tx, ty), (200, 100), (900, 500), (-300, 300)]
+    ochunk = torch.from_numpy(oclip[1:]).to(dev)
+    k3_err = 0.0
+    k4_ms, k4_plain_ms, k4_bound = {}, {}, {}
+    for label, extents in (("uniform", [(80, 80)] * 4),
+                           ("bucketed", [(80, 80), (64, 48), (48, 64), (32, 32)])):
+        templates = [g0[y : y + eh, x : x + ew] for (x, y), (eh, ew) in zip(cut_at, extents)]
+        rois = [(x, y, ew, eh) for (x, y), (eh, ew) in zip(start_at, extents)]
+        init = init_multi_state if label == "uniform" else init_multi_state_bucketed
+        ost = init(templates, rois)  # no device given: the current CUDA device
+        if not all(v.is_cuda for v in ost):
+            raise AssertionError("states built with no device argument are not on the card")
+        bucket = None if label == "uniform" else extents
+        oargs = (ochunk, torch.stack(list(ost.bbox), dim=-1), ost.template, ost.t_mean, ost.t_std,
+                 ost.lost_count, ost.use_global, of, config)
+        before = mega_track_chunk_objects.launches
+        got = mega_track_chunk_objects(*oargs, bucket_extents=bucket)
+        if mega_track_chunk_objects.launches - before != 2 * of:
+            raise AssertionError(f"K3 {label} did not launch twice per frame step")
+        if not bool((got[0][3, :, 9] != 0).any()):
+            raise AssertionError(f"K3 {label}: the object started outside ran no global frame")
+        k3_err = max(k3_err, compare(
+            f"K3 parity {label} K=4 (target, two patches, one from outside)", got,
+            mega_track_chunk_objects_reference(*oargs, bucket_extents=bucket)))
+        for i, (eh, ew) in enumerate(extents):
+            one = [a[i] for a in oargs[1:7]]
+            one[1] = one[1][:eh, :ew].contiguous()
+            k1 = mega_track_chunk(ochunk, *one, of, config)
+            if not (torch.equal(k1[0], got[0][i]) and torch.equal(k1[1], got[1][i, :eh, :ew])
+                    and not got[1][i, eh:].any() and not got[1][i, :, ew:].any()):
+                raise AssertionError(f"K3 {label} object {i} differs from K1 on it alone")
+        print(f"K3 {label} ({extents}): each object's records and template bit-equal to K1 on "
+              f"that object alone at its true extent; 2F launches")
+        # Both K = 4 sets timed over the same 48 steps, kernel and plain,
+        # beside their bounds (each object's FMA at its own extent).
+        rows4 = got[0].cpu().numpy()
+        k4_ms[label] = time_ms(lambda: mega_track_chunk_objects(*oargs, bucket_extents=bucket),
+                               5) / of
+        k4_plain_ms[label] = time_ms(lambda: mega_track_chunk_objects_reference(
+            *oargs, bucket_extents=bucket), 1) / of
+        k4_bound[label] = chunk_bound(
+            [(oargs[1][i].tolist(), rows4[i], of, frames.shape[1:], extents[i], config)
+             for i in range(4)], of, ochunk.numel())[0]
+        print(f"K3 {label} K=4 (one object global on {int(rows4[3, :, 9].sum())} of {of} "
+              f"steps), ms per step over the same {of} steps: kernel {k4_ms[label]:.5f}, plain "
+              f"{k4_plain_ms[label]:.5f}, bound {k4_bound[label]:.5f}")
+
+    # A bucket too large to stage whole beside its tile: every lane, the
+    # small ones too (shorter than one chunk), sums its own halves in row
+    # chunks sized for the bucket, and must still be K1 on that object alone.
+    xspec = SyntheticSpec(width=1920, height=1080, num_frames=9, target_w=176, target_h=176,
+                          seed=5)
+    xclip = generate_gray_video(xspec)
+    for px, py, (eh, ew) in ((300, 200, (64, 48)), (1500, 800, (32, 32))):
+        xclip[:, py : py + eh, px : px + ew] = prng.integers(0, 256, (eh, ew), np.uint8)
+    xg0 = gray_u8_to_f32(xclip[0])
+    xx, xy = target_bbox(xspec, 0)[:2]
+    xext = [(176, 176), (64, 48), (32, 32)]
+    if not MegaGeometry(xclip.shape[1:], (176, 176), config).stage_rows(3) < 176:
+        raise AssertionError("the 176x176 bucket at 3 lanes does not stage in chunks")
+    xst = init_multi_state_bucketed(
+        [xg0[y : y + eh, x : x + ew] for (x, y), (eh, ew) in zip(
+            [(xx, xy), (300, 200), (1500, 800)], xext)],
+        [(x, y, ew, eh) for (x, y), (eh, ew) in zip([(xx, xy), (300, 200), (-200, 500)], xext)])
+    xf = xclip.shape[0] - 1
+    xchunk = torch.from_numpy(xclip[1:]).to(dev)
+    xargs = (xchunk, torch.stack(list(xst.bbox), dim=-1), xst.template, xst.t_mean, xst.t_std,
+             xst.lost_count, xst.use_global, xf, config)
+    got = mega_track_chunk_objects(*xargs, bucket_extents=xext)
+    if not bool((got[0][2, :, 9] != 0).any()):
+        raise AssertionError("K3 176x176 bucket: the object started outside ran no global frame")
+    k3_err = max(k3_err, compare(
+        "K3 parity 1080p bucket 176x176 (176x176, 64x48, 32x32 from outside)", got,
+        mega_track_chunk_objects_reference(*xargs, bucket_extents=xext), 176 * 176))
+    for i, (eh, ew) in enumerate(xext):
+        one = [a[i] for a in xargs[1:7]]
+        one[1] = one[1][:eh, :ew].contiguous()
+        k1 = mega_track_chunk(xchunk, *one, xf, config)
+        if not (torch.equal(k1[0], got[0][i]) and torch.equal(k1[1], got[1][i, :eh, :ew])
+                and not got[1][i, eh:].any() and not got[1][i, :, ew:].any()):
+            raise AssertionError(f"K3 176x176 bucket: object {i} differs from K1 on it alone")
+    xrows = got[0].cpu().numpy()
+    k3_x_ms = time_ms(lambda: mega_track_chunk_objects(*xargs, bucket_extents=xext), 5) / xf
+    k3_x_bound = chunk_bound([(xargs[1][i].tolist(), xrows[i], xf, xclip.shape[1:], xext[i],
+                               config) for i in range(3)], xf, xchunk.numel())[0]
+    print(f"K3 1080p bucket 176x176 staged in chunks of "
+          f"{MegaGeometry(xclip.shape[1:], (176, 176), config).stage_rows(3)} rows: each object "
+          f"bit-equal to K1 alone at its true extent; ms per step over {xf} steps (one object "
+          f"global on {int(xrows[2, :, 9].sum())}): kernel {k3_x_ms:.5f}, bound {k3_x_bound:.5f}")
+    lchunk = torch.from_numpy(frames[1 : of + 1]).to(dev)
+    l8 = stack_states([state] * 8)
+    l8args = (lchunk, torch.stack(list(l8.bbox), dim=-1), l8.template, l8.t_mean, l8.t_std,
+              l8.lost_count, l8.use_global, of, config)
+    k3_ms = time_ms(lambda: mega_track_chunk_objects(*l8args), 5) / of
+    k3_plain_ms = time_ms(lambda: mega_track_chunk_objects_reference(*l8args), 1) / of
+    l8_rows = mega_track_chunk_objects(*l8args)[0].cpu().numpy()
+    k3_bound, k3_by = chunk_bound(
+        [(l8args[1][i].tolist(), l8_rows[i], of, frames.shape[1:], (80, 80), config)
+         for i in range(8)], of, lchunk.numel())
+    k3_conv = conv2d_corr_ms(torch.cat([windows_of(lchunk, l8args[1][i].tolist(), l8_rows[i],
+                                                   80, 80, 60) for i in range(8)], dim=1),
+                             l8.template)
+    noise = np.random.default_rng(8).random((80, 80), dtype=np.float32)
+    lost = init_state(noise, (600, 300, 80, 80))._replace(
+        use_global=torch.tensor(True, device=dev))  # matches nothing: stays global
+    g8 = stack_states([state] * 3 + [lost] + [state] * 4)
+    g8args = (lchunk, torch.stack(list(g8.bbox), dim=-1), g8.template, g8.t_mean, g8.t_std,
+              g8.lost_count, g8.use_global, of, config)
+    if not bool((mega_track_chunk_objects(*g8args)[0][3, :, 9] != 0).all()):
+        raise AssertionError("K3 K=8: the held object left global search")
+    k3_g8_ms = time_ms(lambda: mega_track_chunk_objects(*g8args), 3) / of
+    print(f"K3 K=8 all local, ms per step: kernel {k3_ms:.5f}, plain {k3_plain_ms:.5f}, bound "
+          f"{k3_bound:.5f} ({k3_by}); F.conv2d on the correlation term alone {k3_conv:.5f}. "
+          f"K=8 with one object held in global search: {k3_g8_ms:.5f}")
+
+    n_serve = 1024
+    starts8 = stack_states([state] * 8)
+    staged = torch.from_numpy(frames[1 : n_serve + 1]).to(dev)
+    _, dev_out = track_objects_mega(staged, starts8, config, chunk_size=64)
+    dev_fps = n_serve / (time_ms(lambda: track_objects_mega(staged, starts8, config,
+                                                            chunk_size=64), 2) / 1000.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, served_o = serve_objects(iter(frames[1 : n_serve + 1]), starts8, frames.shape[1:], config,
+                                chunk_size=64)
+    serve_o_s = time.perf_counter() - t0
+    k3_launches = mega_track_chunk_objects.launches
+    if mega_track_chunk.launches or mega_track_chunk_multi.launches or k3_launches != 2 * n_serve:
+        raise AssertionError(f"serve_objects launched K3 {k3_launches} times, K1 "
+                             f"{mega_track_chunk.launches}, K2 {mega_track_chunk_multi.launches}")
+    o_err = max(max_l1_err_px(spec, served_o.bbox[:, k]) for k in range(8))
+    if o_err != 0:
+        raise AssertionError(f"serve_objects max_l1_err_px {o_err} != 0")
+    if not all(np.array_equal(a, b) for a, b in zip(served_o, dev_out)):
+        raise AssertionError("serve_objects and track_objects_mega disagree")
+    print(f"serve_objects: 8 objects over {n_serve} frames in {serve_o_s:.3f} s: "
+          f"{n_serve / serve_o_s:.1f} frames/s ({8 * n_serve / serve_o_s:.1f} object-frames/s); "
+          f"device path (track_objects_mega, frames on the card) {dev_fps:.1f} frames/s; 0 px, "
+          f"equal to track_objects_mega; {k3_launches} K3 launches on {smi}")
+
+    # Phase 6 (run_bench zeroes K1's count again just before the main path's
+    # checked run and reads it just after; nothing else runs in between).
+    reset_counts()
     result = run_bench(clip=(spec, frames))
+    if mega_track_chunk_multi.launches or mega_track_chunk_objects.launches:
+        raise AssertionError("the main path launched K2 or K3")
     print("main path:", json.dumps(result))
     if result["max_l1_err_px"] != 0:
         raise AssertionError(f"main path max_l1_err_px {result['max_l1_err_px']} != 0")
@@ -299,23 +566,24 @@ def main() -> int:
     print(f"main path: {result['value']:.1f} frames/s, {result['ms_per_frame']:.5f} ms/frame "
           f"on {smi}")
 
-    # Phase 6.
+    # Phase 7.
     lengths = [1200 - 50 * s for s in range(8)]
     offsets = stream_cuts(8, frames.shape[0], lengths)
     starts = stream_states(spec, frames, offsets, dev)
     chunk_size = 64
     timings: list = []
-    mega_track_chunk.launches = 0
-    mega_track_chunk_multi.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     _, served = serve_streams([iter(frames[o + 1 : o + 1 + n]) for o, n in zip(offsets, lengths)],
                               starts, frames.shape[1:], config,
                               chunk_size=chunk_size, timings=timings)
     serve_s = time.perf_counter() - t0
     serve_launches = mega_track_chunk_multi.launches
-    if mega_track_chunk.launches or serve_launches != 2 * len(timings) * chunk_size:
+    if (mega_track_chunk.launches or mega_track_chunk_objects.launches
+            or serve_launches != 2 * len(timings) * chunk_size):
         raise AssertionError(f"serving launched K2 {serve_launches} times, K1 "
-                             f"{mega_track_chunk.launches}")
+                             f"{mega_track_chunk.launches}, K3 "
+                             f"{mega_track_chunk_objects.launches}")
     for s, (o, n) in enumerate(zip(offsets, lengths)):
         if served[s].bbox.shape[0] != n:
             raise AssertionError(f"stream {s}: {served[s].bbox.shape[0]} records for {n} frames")
@@ -332,7 +600,7 @@ def main() -> int:
           f"ground truth and equal to track_video_mega alone; {serve_launches} K2 launches "
           f"on {smi}")
 
-    # Phase 7.
+    # Phase 8.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -343,9 +611,18 @@ def main() -> int:
             "max_abs_err": k1_err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": k1_bound,
+            "bound_by": k1_by,
+            "library_ms": None,
+            "conv2d_corr_ms": k1_conv,
             "ms_unit": "per tracked local frame, 720p/80/r60",
             "global_frame_ms": g_ms,
             "plain_global_frame_ms": g_plain_ms,
+            "global_frame_bound_ms": g_bound,
+            "frame_1080p_160_r160_local_ms": b_ms,
+            "frame_1080p_160_r160_local_bound_ms": b_bound,
+            "frame_1080p_160_global_ms": bg_ms,
+            "frame_1080p_160_global_bound_ms": bg_bound,
         },
         {
             "name": "mega_track_chunk_multi",
@@ -356,8 +633,38 @@ def main() -> int:
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound,
+            "bound_by": k2_by,
+            "library_ms": None,
             "ms_unit": "per frame step of 4 streams over the same 48 steps, 720p/80/r60",
             "s8_one_global_ms_per_step": k2_s8_global_ms,
+        },
+        {
+            "name": "mega_track_chunk_objects",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/ncc_mega.cu",
+            "replaces": "pvot/ops/ncc_mega.py:1246",
+            "launches": k3_launches,
+            "max_abs_err": k3_err,
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound,
+            "bound_by": k3_by,
+            "library_ms": None,
+            "conv2d_corr_ms": k3_conv,
+            "ms_unit": "per frame step of 8 objects, all local, over the same 48 steps, "
+                       "720p/80/r60",
+            "k4_one_global_ms_per_step": k4_ms["uniform"],
+            "k4_one_global_plain_ms_per_step": k4_plain_ms["uniform"],
+            "k4_one_global_bound_ms_per_step": k4_bound["uniform"],
+            "k4_bucketed_ms_per_step": k4_ms["bucketed"],
+            "k4_bucketed_plain_ms_per_step": k4_plain_ms["bucketed"],
+            "k4_bucketed_bound_ms_per_step": k4_bound["bucketed"],
+            "k3_1080p_bucket176_chunked_ms_per_step": k3_x_ms,
+            "k3_1080p_bucket176_chunked_bound_ms_per_step": k3_x_bound,
+            "k8_one_global_ms_per_step": k3_g8_ms,
+            "serve_objects_fps": n_serve / serve_o_s,
+            "device_path_fps": dev_fps,
         },
     ]}))
     print(smi)

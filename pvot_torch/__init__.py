@@ -19,8 +19,10 @@ __all__ = [
     "track_video",
     "track_video_mega",
     "track_streams_mega",
+    "track_objects_mega",
     "serve_streams",
     "serve_streams_grouped",
+    "serve_objects",
 ]
 
 
@@ -29,6 +31,10 @@ def __getattr__(name):  # lazy heavyweight entry points
         from pvot_torch.tracker.mega import track_streams_mega
 
         return track_streams_mega
+    if name == "track_objects_mega":
+        from pvot_torch.tracker.mega import track_objects_mega
+
+        return track_objects_mega
     if name == "serve_streams":
         from pvot_torch.io.serving import serve_streams
 
@@ -37,4 +43,8 @@ def __getattr__(name):  # lazy heavyweight entry points
         from pvot_torch.io.serving import serve_streams_grouped
 
         return serve_streams_grouped
+    if name == "serve_objects":
+        from pvot_torch.io.serving import serve_objects
+
+        return serve_objects
     raise AttributeError(f"module 'pvot_torch' has no attribute {name!r}")

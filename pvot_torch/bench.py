@@ -6,8 +6,10 @@ frame 0 as the initial state, 2048 tracked frames in chunks of 512, and
 max_l1_err_px == 0 against the ground-truth bbox.  The port runs the f32
 tier (bench.py's `mega_highest=True` analog).
 
-Run with `python -m pvot_torch.bench`; it prints one JSON line.  It needs a
-CUDA device and fails without one.
+Run with `python -m pvot_torch.bench`; it prints one JSON line, then one for
+`--streams S` (S streams cut from the clip) and one for `--objects K` (K
+trackers over the clip, benchmarks/suite.py:813 `bench_multi_object_mega`).
+It needs a CUDA device and fails without one.
 
 Protocol: the frames are staged on the card first (set-up, untimed).  The
 checked run tracks the clip once with every launch counter at 0 and checks
@@ -26,6 +28,43 @@ import time
 
 import numpy as np
 import torch
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
+# outside the tensor cores, the rate the kernels' correlation runs at, and
+# HBM3.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def scored_positions(start_bbox, bboxes, used_global, frame_shape, templ_shape,
+                     config) -> int:
+    """Score-map positions one tracker's frames need: each frame's clamped
+    local window around the box it starts from, or its whole map on a frame
+    whose argmax ran global.  bboxes (F, 4) are the boxes after each frame,
+    used_global (F,) the frames' flags."""
+    from pvot_torch.ops.search import local_window_bounds
+
+    (h, w), (th, tw) = frame_shape, templ_shape
+    out_h, out_w = h - th + 1, w - tw + 1
+    total = 0
+    bx, by, bw, bh = (int(v) for v in start_bbox)
+    for box, glob in zip(np.asarray(bboxes).tolist(), np.asarray(used_global).tolist()):
+        if glob:
+            total += out_h * out_w
+        else:
+            b = local_window_bounds(bx + bw // 2, by + bh // 2, tw, th, out_w, out_h,
+                                    config.search_radius_x, config.search_radius_y)
+            total += (b.max_tx - b.min_tx + 1) * (b.max_ty - b.min_ty + 1)
+        bx, by, bw, bh = (int(v) for v in box)
+    return total
+
+
+def bound_ms(fma: float, n_bytes: float) -> tuple:
+    """(least milliseconds the card could take, what bounds it): the larger of
+    2 * fma FP32 operations at the FP32 peak and n_bytes at the memory rate."""
+    t_ops, t_bytes = 2.0 * fma / FP32_FLOPS, n_bytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def gpu_identity() -> tuple:
@@ -138,7 +177,7 @@ def stream_states(spec, frames: np.ndarray, offsets, device):
     """Stacked initial state: stream s from its ground-truth box at frame offsets[s]."""
     from pvot_torch.parallel.multi import stack_states
 
-    return stack_states([state_at(spec, frames, o, device) for o in offsets])
+    return stack_states([state_at(spec, frames, o, device) for o in offsets], device)
 
 
 def stream_err_px(spec, offset: int, bbox: np.ndarray) -> int:
@@ -234,12 +273,100 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
     }
 
 
+def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 512,
+                      passes: int = 3, serve_chunk: int = 64, clip=None) -> dict:
+    """K trackers over the bench clip, all started on its ground-truth box so
+    that every lane is checked against the ground truth
+    (benchmarks/suite.py:813 `bench_multi_object_mega`).
+
+    Device path: track_objects_mega over the clip staged on the card, checked
+    once with the launch counter at 0, then `passes` runs timed with CUDA
+    events (median).  Serving path: serve_objects from the host clip through
+    the decode thread, pinned staging and the copy stream, timed on the host
+    clock, and held equal to the device path."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("pvot_torch.bench needs a CUDA device")
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.io.serving import serve_objects
+    from pvot_torch.ops.ncc_mega import mega_track_chunk_objects
+    from pvot_torch.parallel.multi import stack_states
+    from pvot_torch.tracker.mega import track_objects_mega
+
+    dev = torch.device("cuda", 0)
+    spec, frames = clip if clip is not None else bench_clip(num_frames)
+    config = TrackerConfig()
+    h, w = frames.shape[1:]
+    one = state_at(spec, frames, 0, dev)
+    states = stack_states([one] * n_objects, dev)
+    staged = torch.from_numpy(frames[1 : 1 + num_frames]).to(dev)
+    torch.cuda.synchronize()
+
+    mega_track_chunk_objects.launches = 0
+    _, out = track_objects_mega(staged, states, config, chunk_size=chunk_size)
+    launches = mega_track_chunk_objects.launches
+    errs = [max_l1_err_px(spec, out.bbox[:, k]) for k in range(n_objects)]
+    times_ms = []
+    for _ in range(passes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, again = track_objects_mega(staged, states, config, chunk_size=chunk_size)
+        end.record()
+        end.synchronize()
+        times_ms.append(start.elapsed_time(end))
+        if not np.array_equal(again.bbox, out.bbox):
+            raise RuntimeError("a timed run's trajectories differ from the checked run's")
+    med = statistics.median(times_ms)
+
+    timings: list = []
+    t0 = time.perf_counter()
+    _, served = serve_objects(iter(frames[1 : 1 + num_frames]), states, (h, w), config,
+                              chunk_size=serve_chunk, timings=timings)
+    serve_s = time.perf_counter() - t0
+    if not np.array_equal(served.bbox, out.bbox):
+        raise RuntimeError("serve_objects and track_objects_mega disagree")
+    th, tw = one.template.shape
+    start_box = [int(v) for v in torch.stack(list(one.bbox)).tolist()]
+    fma = th * tw * sum(scored_positions(start_box, out.bbox[:, k], out.used_global[:, k],
+                                         (h, w), (th, tw), config) for k in range(n_objects))
+    n_bytes = num_frames * h * w + n_objects * (2 * th * tw * 4 + num_frames * 40)
+    bound, bound_by = bound_ms(fma, n_bytes)
+    gpu, watts = gpu_identity()
+    fps = num_frames / (med / 1000.0)
+    return {
+        "metric": f"tracked_fps_720p_80px_{n_objects}objects",
+        "value": fps,
+        "unit": "clip frames/s, all objects tracked",
+        "object_rate": fps * n_objects,
+        "ms_per_step": med / num_frames,
+        "run_ms_median": med,
+        "run_ms_all": times_ms,
+        "objects": n_objects,
+        "frames": num_frames,
+        "chunk_size": chunk_size,
+        "max_l1_err_px": max(errs),
+        "kernel_launches": launches,
+        "bound_ms_per_step": bound / num_frames,
+        "bound_by": bound_by,
+        "serve_fps": num_frames / serve_s,
+        "serve_s": serve_s,
+        "serve_chunk": serve_chunk,
+        "serve_chunks": len(timings),
+        "tier": "f32",
+        "gpu": torch.cuda.get_device_name(0),
+        "gpu_smi": gpu,
+        "power_limit_w": watts,
+    }
+
+
 def main(argv=None) -> None:
     import argparse
 
     p = argparse.ArgumentParser(prog="python -m pvot_torch.bench", description=__doc__)
     p.add_argument("--streams", type=int, default=0, metavar="S",
                    help="also track S streams together and print their aggregate line")
+    p.add_argument("--objects", type=int, default=0, metavar="K",
+                   help="also track K objects over the clip and print their line")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
     clip = bench_clip()
@@ -255,6 +382,13 @@ def main(argv=None) -> None:
         print(json.dumps(multi))
         if multi["max_l1_err_px"] != 0 or multi["serve_max_l1_err_px"] != 0:
             raise SystemExit("a tracked stream is off the ground truth")
+    if args.objects > 0:
+        t0 = time.perf_counter()
+        objects = run_bench_objects(args.objects, clip=clip)
+        objects["wall_s"] = time.perf_counter() - t0
+        print(json.dumps(objects))
+        if objects["max_l1_err_px"] != 0:
+            raise SystemExit("a tracked object is off the ground truth")
 
 
 if __name__ == "__main__":

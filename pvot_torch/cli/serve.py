@@ -1,5 +1,5 @@
-"""pvot-torch-serve: track S video streams concurrently on one card (the port
-of pvot/cli/serve.py, its stream modes).
+"""pvot-torch-serve: track S video streams, or K objects in one stream,
+concurrently on one card (the port of pvot/cli/serve.py).
 
 Drives pvot_torch.io.serving.serve_streams: one decode thread per stream,
 every chunk of every stream through the multi-stream CUDA kernel, global
@@ -7,17 +7,21 @@ search on the card.  Headless: ROIs come from --roi, one shared by all
 streams or one per stream, or default to each synthetic stream's known
 target.  Homogeneous inputs (one frame size, one ROI size) serve through the
 stacked layout (pvot_torch.parallel.multi.init_multi_state); mixed frame or
-ROI sizes serve through geometry groups (serve_streams_grouped).
+ROI sizes serve through geometry groups (serve_streams_grouped).  Several
+--roi over ONE stream select objects mode: K trackers over that stream
+through the multi-object CUDA kernel (serve_objects), mixed ROI sizes in the
+bucketed layout (init_multi_state_bucketed); a K-object --resume checkpoint
+over one stream resumes it.
 
 What the JAX front end has and the port not yet exits with code 2 and names
-its ROADMAP item: several --roi over one stream (objects mode, A9), --fast
-and --score-passes (A6), --devices (A12), --scan-backend (A10).  Video files
-need OpenCV, which the card's machine does not have: there, serve
---synthetic streams.
+its ROADMAP item: --fast and --score-passes (A6), --devices (A12),
+--scan-backend (A10).  Video files need OpenCV, which the card's machine does
+not have: there, serve --synthetic streams.
 
 Examples:
   pvot-torch-serve cam0.mp4 cam1.mp4 cam2.mp4 --roi 600,320,80,80
   pvot-torch-serve --synthetic 1280x720x300 --streams 8
+  pvot-torch-serve --synthetic 1280x720x300 --streams 1 --roi 600,320,80,80 --roi 100,90,64,48
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def parse_args(argv: List[str]):
     )
     p.add_argument(
         "--trajectory-out", default=None, metavar="PREFIX",
-        help="write per-stream JSON-lines trajectories to PREFIX.s<K>.jsonl",
+        help="write per-stream JSON-lines trajectories to PREFIX.s<K>.jsonl "
+             "(objects mode: per object, PREFIX.o<K>.jsonl)",
     )
     p.add_argument(
         "--checkpoint-out", default=None,
@@ -192,17 +197,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         try:
             if all(os.path.exists(p) for p in per_stream):
                 # Heterogeneous checkpoints are one file per stream.
-                states_list = [load_state(p) for p in per_stream]
+                states_list = [load_state(p, args.device) for p in per_stream]
                 return _run_serving_grouped(args, feeds, states_list, frame_shapes, closers)
-            states = load_state(args.resume)
+            states = load_state(args.resume, args.device)
         except (OSError, ValueError, KeyError) as e:
             return _fail(f"Cannot resume from {args.resume!r}: {e}")
         if states.t_mean.ndim == 0:
             # A single-stream checkpoint: serve it as a one-stream stacked state.
             from pvot_torch.parallel.multi import stack_states
 
-            states = stack_states([states])
+            states = stack_states([states], args.device)
         saved = int(states.t_mean.shape[0])
+        if n_streams == 1 and saved > 1:
+            # A K-object checkpoint over one stream resumes objects mode.
+            return _run_objects(args, feeds[0], states, frame_shapes[0], closers)
         if saved != n_streams:
             return _fail(f"--resume checkpoint holds {saved} stream states for "
                          f"{n_streams} streams")
@@ -210,40 +218,50 @@ def main(argv: Optional[List[str]] = None) -> int:
             return _fail("--resume of one stacked checkpoint needs one frame size")
         return _run_serving(args, feeds, states, frame_shapes[0], closers)
 
+    # With ONE stream, several --roi select objects mode: K trackers over it.
+    objects_mode = False
     if args.roi:
         try:
             rois = [_parse_roi(t) for t in args.roi]
         except SystemExit as e:  # invalid --roi after decoders opened
             return _fail(str(e))
         if n_streams == 1 and len(rois) > 1:
-            return _fail(f"{len(rois)} --roi over one stream is multi-object serving, "
-                         "which is not ported to pvot_torch yet (ROADMAP A9)")
-        if len(rois) == 1:
+            objects_mode = True
+        elif len(rois) == 1:
             rois = rois * n_streams
         elif len(rois) != n_streams:
+            hint = "pass --streams 1" if args.synthetic else "give exactly one video path"
             return _fail(f"Got {len(rois)} --roi for {n_streams} streams "
-                         "(give one, or one per stream)")
+                         "(give one, or one per stream; for objects mode, "
+                         f"{len(rois)} trackers over ONE stream, {hint})")
     elif all(r is not None for r in default_rois):
         rois = default_rois
     else:
         return _fail("File streams need --roi (serving is headless)")
+    hetero_rois = len({(rw, rh) for _, _, rw, rh in rois}) > 1
 
     for s, (x, y, rw, rh) in enumerate(rois):
-        fh, fw = frame_shapes[s]
+        fh, fw = frame_shapes[0 if objects_mode else s]
         if x < 0 or y < 0 or x + rw > fw or y + rh > fh:
             return _fail(f"--roi {x},{y},{rw},{rh} (stream {s}) lies outside the "
                          f"{fw}x{fh} frame")
+    template_firsts = firsts * len(rois) if objects_mode else firsts
     templates = [gray_u8_to_f32(first)[y : y + rh, x : x + rw]
-                 for first, (x, y, rw, rh) in zip(firsts, rois)]
-    if len({(rw, rh) for _, _, rw, rh in rois}) > 1 or len(set(frame_shapes)) > 1:
+                 for first, (x, y, rw, rh) in zip(template_firsts, rois)]
+    from pvot_torch.parallel import multi
+
+    if objects_mode:
+        # Mixed template sizes over one stream: the bucketed layout.
+        init = multi.init_multi_state_bucketed if hetero_rois else multi.init_multi_state
+        return _run_objects(args, feeds[0], init(templates, rois, device=args.device),
+                            frame_shapes[0], closers)
+    if hetero_rois or len(set(frame_shapes)) > 1:
         from pvot_torch.tracker.state import init_state
 
-        states_list = [init_state(t, r) for t, r in zip(templates, rois)]
+        states_list = [init_state(t, r, args.device) for t, r in zip(templates, rois)]
         return _run_serving_grouped(args, feeds, states_list, frame_shapes, closers)
-    from pvot_torch.parallel.multi import init_multi_state
-
-    return _run_serving(args, feeds, init_multi_state(templates, rois), frame_shapes[0],
-                        closers)
+    return _run_serving(args, feeds, multi.init_multi_state(templates, rois, args.device),
+                        frame_shapes[0], closers)
 
 
 def _report(outs, elapsed: float) -> None:
@@ -275,6 +293,55 @@ def _write_trajectories(prefix: str, outs) -> None:
                     "updated": bool(out.updated[i]),
                 }) + "\n")
     print(f"Trajectories written: {prefix}.s*.jsonl")
+
+
+def _run_objects(args, feed, states, frame_shape, closers) -> int:
+    """K trackers over one stream (pvot/cli/serve.py:347 `_run_objects`):
+    pvot_torch.io.serving.serve_objects."""
+    from pvot_torch.io.serving import serve_objects
+    from pvot_torch.utils.checkpoint import save_state
+
+    k = int(states.t_mean.shape[0])
+    th = int(states.bbox_h.max())  # the bucket's extent, when the sizes are mixed
+    tw = int(states.bbox_w.max())
+    print(f"Serving 1 stream x {k} objects at {frame_shape[1]}x{frame_shape[0]}, "
+          f"template {tw}x{th}, chunk {args.chunk_size}, device {args.device}")
+    t0 = time.perf_counter()
+    try:
+        final, out = serve_objects(
+            feed, states, frame_shape, _config(args), chunk_size=args.chunk_size,
+            pipeline_depth=args.pipeline_depth, devices=[args.device],
+        )
+        elapsed = time.perf_counter() - t0
+    finally:  # decoder handles must not leak if the stream raises mid-serve
+        for c in closers:
+            c.close()
+    n = out.bbox.shape[0]
+    for i in range(k):
+        score = float(np.mean(out.score[:, i])) if n else float("nan")
+        print(f"object {i}: frames={n}, updated={int(out.updated[:, i].sum())}, "
+              f"global={int(out.used_global[:, i].sum())}, mean_score={score:.4f}, "
+              f"final_bbox={out.bbox[-1, i].tolist() if n else None}")
+    rate = n * k / elapsed if elapsed > 0 else 0.0
+    print(f"Serving summary: objects={k}, frames={n}, time={elapsed:.6g} s, "
+          f"object-updates/s={rate:.6g}")
+    if args.trajectory_out:
+        for i in range(k):
+            with open(f"{args.trajectory_out}.o{i}.jsonl", "w") as f:
+                for j in range(n):
+                    f.write(json.dumps({
+                        "object": i,
+                        "frame": 1 + j,
+                        "bbox": np.asarray(out.bbox[j, i]).tolist(),
+                        "score": round(float(out.score[j, i]), 6),
+                        "used_global": bool(out.used_global[j, i]),
+                        "updated": bool(out.updated[j, i]),
+                    }) + "\n")
+        print(f"Trajectories written: {args.trajectory_out}.o*.jsonl")
+    if args.checkpoint_out:
+        path = save_state(args.checkpoint_out, final)
+        print(f"Checkpoint saved: {path} ({k} object states)")
+    return 0
 
 
 def _run_serving(args, feeds, states, frame_shape, closers) -> int:

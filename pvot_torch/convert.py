@@ -17,7 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from pvot_torch.tracker.state import TrackerState
+from pvot_torch.tracker.state import TrackerState, default_device
 
 _DTYPES = {
     "bbox_x": torch.int32, "bbox_y": torch.int32, "bbox_w": torch.int32,
@@ -26,9 +26,11 @@ _DTYPES = {
 }
 
 
-def state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> TrackerState:
+def state_from_numpy(d: Dict[str, np.ndarray], device=None) -> TrackerState:
     """Dict of numpy arrays (TrackerState field names) -> TrackerState on
-    `device`; values keep their bits (ints and bools convert exactly)."""
+    `device` (default: the current CUDA device); values keep their bits (ints
+    and bools convert exactly)."""
+    device = default_device(device)
     return TrackerState(
         **{
             k: torch.as_tensor(np.array(d[k]), device=device).to(dt)

@@ -1,14 +1,19 @@
-// Tracking chunks on Hopper, one stream or many: the port of
-// pvot/ops/ncc_mega.py `_mega_kernel` (:170) with `_scored_frame_body` (:496),
-// `_shear_score_tiles` (:318) and `_lex_better` (:487), entries
-// `mega_track_chunk` (:818, K1) and `mega_track_chunk_multi` (:966, K2), at
-// their f32 tier (highest=True, inkernel_global=True, batch=1).
+// Tracking chunks on Hopper, one stream, many streams or many objects: the
+// port of pvot/ops/ncc_mega.py `_mega_kernel` (:170) with `_scored_frame_body`
+// (:496), `_shear_score_tiles` (:318) and `_lex_better` (:487), entries
+// `mega_track_chunk` (:818, K1), `mega_track_chunk_multi` (:966, K2) and
+// `mega_track_chunk_objects` (:1115, K3), at their f32 tier (highest=True,
+// inkernel_global=True, batch=1).
 //
-// Lanes.  The device code is written for S independent lanes (streams): lane
-// s has its own frames (at s * frame_stride), template, state slot, partials
-// and records; K1 is S = 1.  Per frame step t of a chunk, in stream order and
-// with every lane's tracker state resident in device memory (the host never
-// waits inside a chunk):
+// Lanes.  The device code is written for S independent lanes (streams or
+// objects): lane s has its own frames (at s * frame_stride), template, state
+// slot, partials and records; K1 is S = 1, K3 is frame_stride 0 (every object
+// reads the one shared clip).  A lane's template extent (th, tw) is the
+// launch's unless a per-lane extent table is given (K3's bucketed mode): the
+// templates then sit zero-padded in a shared th x tw bucket, and each lane
+// scores, commits and updates only its own top-left th_k x tw_k.  Per frame
+// step t of a chunk, in stream order and with every lane's tracker state
+// resident in device memory (the host never waits inside a chunk):
 //
 //   (a) score_kernel — one launch for all lanes.  Each block derives every
 //       lane's mode and window from its state (frame_mode below,
@@ -113,6 +118,7 @@ struct LaneWork {
   int do_global, split;    // split: 2 when two blocks share each tile
   int begin, n_items;      // the lane's items in the block's union
   float t_mean, t_den, sum_tc;  // template stats (t_den = t_std + 1e-6)
+  int th, tw;              // the lane's template extent
 };
 
 // The lane table of a launch with n_lanes lanes; a one-lane launch has none.
@@ -145,16 +151,32 @@ int stage_rows(int th, int tw, int n_lanes) {
 }
 
 struct Params {
-  int frame_h, frame_w, th, tw, out_h, out_w;
+  int frame_h, frame_w, th, tw, out_h, out_w;  // th, tw: the template buffer's (bucket's)
   int radius_x, radius_y, lost_threshold, enable_global;
   int n_lanes;
   int n_slots;          // partial slots per lane: one per score block
   int max_split_tiles;  // split scratch per lane, in tiles
   int stage_rows;
-  long long frame_stride;  // elements from one lane's frames to the next's
+  long long frame_stride;  // elements from one lane's frames to the next's (0: shared)
   long long frame_px;      // elements of one frame
+  const int32_t* ext;      // per-lane (th, tw), or null: every lane th x tw
   float min_conf, global_conf, strong_conf, lr, one_minus_lr;
 };
+
+// A lane's template extent and the extent of its score map: the launch's
+// (every lane th x tw), or lane l's own from the extent table.
+struct Extent {
+  int th, tw, out_h, out_w;
+};
+
+__device__ __forceinline__ Extent launch_extent(const Params& p) {
+  return Extent{p.th, p.tw, p.out_h, p.out_w};
+}
+
+__device__ __forceinline__ Extent lane_extent(const Params& p, int l) {  // p.ext not null
+  const int th = p.ext[2 * l], tw = p.ext[2 * l + 1];
+  return Extent{th, tw, p.frame_h - th + 1, p.frame_w - tw + 1};
+}
 
 // Mode of frame t from a lane's state (pvot/ops/ncc_mega.py:541-573) and the
 // inclusive block of map positions the frame scores.
@@ -174,7 +196,7 @@ __device__ __forceinline__ bool bbox_outside(int bx, int by, int bw, int bh,
   return center_out || box_out;
 }
 
-__device__ Mode frame_mode(const int32_t* si, const Params& p, int t) {
+__device__ Mode frame_mode(const int32_t* si, const Params& p, int t, const Extent& e) {
   const int bx = si[0], by = si[1], bw = si[2], bh = si[3];
   const int lost = si[4], useg = si[5], n_valid = si[6];
   Mode m;
@@ -182,15 +204,15 @@ __device__ Mode frame_mode(const int32_t* si, const Params& p, int t) {
                  (useg != 0 || bbox_outside(bx, by, bw, bh, p) ||
                   lost >= p.lost_threshold);
   const int cx = bx + (bw >> 1), cy = by + (bh >> 1);
-  const int min_tx = max(0, cx - p.radius_x - (p.tw >> 1));
-  const int max_tx = min(p.out_w - 1, cx + p.radius_x - (p.tw >> 1));
-  const int min_ty = max(0, cy - p.radius_y - (p.th >> 1));
-  const int max_ty = min(p.out_h - 1, cy + p.radius_y - (p.th >> 1));
+  const int min_tx = max(0, cx - p.radius_x - (e.tw >> 1));
+  const int max_tx = min(e.out_w - 1, cx + p.radius_x - (e.tw >> 1));
+  const int min_ty = max(0, cy - p.radius_y - (e.th >> 1));
+  const int max_ty = min(e.out_h - 1, cy + p.radius_y - (e.th >> 1));
   const bool window_valid = max_tx >= min_tx && max_ty >= min_ty;
   m.valid = t < n_valid;
   m.do_global = (m.use_global || !window_valid) && m.valid;
   if (m.do_global) {
-    m.ry0 = 0; m.ry1 = p.out_h - 1; m.rx0 = 0; m.rx1 = p.out_w - 1;
+    m.ry0 = 0; m.ry1 = e.out_h - 1; m.rx0 = 0; m.rx1 = e.out_w - 1;
   } else {  // empty when the window collapsed on a frame past n_valid
     m.ry0 = min_ty; m.ry1 = max_ty; m.rx0 = min_tx; m.rx1 = max_tx;
   }
@@ -272,11 +294,13 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// One lane's work in frame t from its state (si, sf: the lane's slots),
-// unsplit; the caller decides whether two blocks share each tile.
-__device__ LaneWork lane_work(const int32_t* si, const float* sf, const Params& p, int t) {
-  const Mode m = frame_mode(si, p, t);
+// One lane's work in frame t from its state (si, sf: the lane's slots) and
+// extent, unsplit; the caller decides whether two blocks share each tile.
+__device__ LaneWork lane_work(const int32_t* si, const float* sf, const Params& p, int t,
+                              const Extent& e) {
+  const Mode m = frame_mode(si, p, t, e);
   LaneWork w;
+  w.th = e.th; w.tw = e.tw;
   w.ry0 = m.ry0; w.rx0 = m.rx0; w.ry1 = m.ry1; w.rx1 = m.rx1;
   const int reg_h = m.ry1 - m.ry0 + 1, reg_w = m.rx1 - m.rx0 + 1;
   w.tiles_x = reg_w > 0 ? (reg_w + kTileW - 1) / kTileW : 0;
@@ -291,8 +315,10 @@ __device__ LaneWork lane_work(const int32_t* si, const float* sf, const Params& 
 
 // kWhole: the whole template is staged at once (stage_rows == th).  kOne:
 // the launch has one lane (K1); every thread derives its work into
-// registers, and there is no lane table.
-template <bool kWhole, bool kOne>
+// registers, and there is no lane table.  kExt: the lanes have extents of
+// their own (K3's bucketed mode; never with kOne); without it every lane has
+// the launch's, as constant over the whole launch as in a one-lane one.
+template <bool kWhole, bool kOne, bool kExt>
 __global__ void __launch_bounds__(kScoreThreads)
 score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
              const int32_t* __restrict__ si, const float* __restrict__ sf,
@@ -301,10 +327,11 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
   extern __shared__ __align__(16) float smem[];
   __shared__ Best s_best[kScoreThreads / 32];
   __shared__ int s_last, s_n_items;
-  const int th = p.th, tw = p.tw;
-  const int tw4 = round_up4(tw);                 // template row stride, zero-padded
-  const int mid = th / 2;                        // halves: rows [0, mid), [mid, th)
-  const int in_wl = kTileW + tw4;                // input columns read
+  // Strides and shared-memory plan come from the template buffer (the
+  // bucket); a lane's extent (th, tw in the item loop) may be smaller.
+  const int tw4 = round_up4(p.tw);               // template row stride, zero-padded
+  const int mid1 = p.th / 2;                     // the launch extent's halves
+  const int in_wl1 = kTileW + tw4;               // and input columns
   const int in_w = in_stride(tw4);               // input row stride (multiple of 4)
   const int in_h = p.stage_rows + kTileH - 1;
   const int nl = p.n_lanes;
@@ -320,7 +347,7 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
   LaneWork one{};  // kOne: the lane's work
   int n_items;
   if (kOne) {
-    one = lane_work(si, sf, p, t);
+    one = lane_work(si, sf, p, t, launch_extent(p));
     // A local frame has too few tiles to fill the card: two blocks share
     // each tile then, one half of the template rows each (the "items").
     one.split = (!one.do_global && 2 * one.n_tiles <= static_cast<int>(gridDim.x)) ? 2 : 1;
@@ -334,7 +361,7 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
       }
       return;
     }
-    if (kWhole) stage_template(s_tc, tpl, one.t_mean, th, tw, tw4, threadIdx.x, blockDim.x);
+    if (kWhole) stage_template(s_tc, tpl, one.t_mean, p.th, p.tw, tw4, threadIdx.x, blockDim.x);
   } else {
     if (threadIdx.x < 32) {
       // Warp 0: each lane's mode, window and tiles; two blocks share each
@@ -347,7 +374,8 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
         const int l = base + lane;
         int v = 0;
         if (l < nl) {
-          lanes[l] = lane_work(si + l * kStateI, sf + l * kStateF, p, t);
+          lanes[l] = lane_work(si + l * kStateI, sf + l * kStateF, p, t,
+                               kExt ? lane_extent(p, l) : launch_extent(p));
           v = lanes[l].n_tiles * (lanes[l].do_global ? 1 : 2);
           // This block's partial for the lane stays empty unless one of its
           // items scores the lane.
@@ -415,6 +443,11 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
       }
     }
     const LaneWork& w = kOne ? one : lanes[l];
+    // The lane's extent, or the launch's, fixed for the whole loop.
+    const int th = kExt ? w.th : p.th, tw = kExt ? w.tw : p.tw;
+    const int tw4e = kExt ? round_up4(tw) : tw4;     // its template columns, zero-padded
+    const int mid = kExt ? th / 2 : mid1;            // halves: rows [0, mid), [mid, th)
+    const int in_wl = kExt ? kTileW + tw4e : in_wl1;  // input columns read
     const int split = w.split;
     const int local = item - w.begin;
     const int tile = local / split, half = local % split;
@@ -439,7 +472,7 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
       if (!fresh) __syncthreads();  // the previous unit's readers are done with it
       fresh = false;
       if (tc_lane != l || tc_row != t_row) {
-        stage_template(s_tc, tpl + (static_cast<size_t>(l) * th + t_row) * tw4, w.t_mean,
+        stage_template(s_tc, tpl + (static_cast<size_t>(l) * p.th + t_row) * tw4, w.t_mean,
                        kWhole ? th : u1 - u0, tw, tw4, threadIdx.x, blockDim.x);
         tc_lane = l;
         tc_row = t_row;
@@ -491,7 +524,7 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
           const float* in_row = s_in + (ty + i - u0) * in_w + tx * kRx;
           const float* t_rowp = s_tc + (i - t_row) * tw4;
           float4 a = *reinterpret_cast<const float4*>(in_row);
-          for (int j0 = 0; j0 < tw4; j0 += 4) {
+          for (int j0 = 0; j0 < tw4e; j0 += 4) {
             const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
             const float4 tv = *reinterpret_cast<const float4*>(t_rowp + j0);
             const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -601,6 +634,8 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
   }
 }
 
+// kExt: the lanes have extents of their own (the score kernel's kExt).
+template <bool kExt>
 __global__ void __launch_bounds__(kCommitThreads)
 commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
               int32_t* __restrict__ si, float* __restrict__ sf,
@@ -609,6 +644,8 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
   __shared__ Best s_best[kCommitThreads / 32];
   __shared__ float2 s_sum2[kCommitThreads / 32];
   const int s = blockIdx.x;
+  // The lane's template extent, in a th x tw4 buffer.
+  const Extent ext = kExt ? lane_extent(p, s) : launch_extent(p);
   const int tw4 = round_up4(p.tw);
   const uint8_t* frame = frames + s * p.frame_stride + t * p.frame_px;
   tpl += static_cast<size_t>(s) * p.th * tw4;
@@ -618,7 +655,7 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
   part_yx += 2 * static_cast<size_t>(s) * p.n_slots;
   float* row = rows + (static_cast<size_t>(s) * n_frames + t) * kRecord;
 
-  const Mode m = frame_mode(si, p, t);
+  const Mode m = frame_mode(si, p, t, ext);
   const int bx = si[0], by = si[1], bw = si[2], bh = si[3];
   const int lost = si[4], useg = si[5];
   const float t_mean = sf[0], t_std = sf[1], sum_tc = sf[2];
@@ -634,13 +671,14 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
   const float threshold = m.use_global ? p.global_conf : p.min_conf;
   const bool accept = m.valid && best.val >= threshold;
   const int new_bx = accept ? best.x : bx, new_by = accept ? best.y : by;
-  const int new_bw = accept ? p.tw : bw, new_bh = accept ? p.th : bh;
+  const int new_bw = accept ? ext.tw : bw, new_bh = accept ? ext.th : bh;
   const int new_lost = accept ? 0 : (m.valid ? lost + 1 : lost);
   const bool new_outside = bbox_outside(new_bx, new_by, new_bw, new_bh, p);
   const int new_useg =
       m.valid ? ((accept && !new_outside) ? 0 : static_cast<int>(m.use_global)) : useg;
 
-  // Template EMA + stats (pvot/ops/ncc_mega.py:766-787).  `strong` is
+  // Template EMA + stats (pvot/ops/ncc_mega.py:766-787), inside the lane's
+  // extent only (the bucket's padding stays 0, :772-787).  `strong` is
   // uniform across the block; the winner lies in the map, so the patch lies
   // in the frame.
   const bool strong = accept && best.val >= p.strong_conf;
@@ -649,7 +687,7 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
     // Pixel idx = threadIdx.x + k * kCommitThreads.  The first kEmaPerThread
     // of each thread stay in registers across the EMA and stats passes; the
     // rest (templates above 20,480 pixels) are read back from device memory.
-    const int n_px = p.th * p.tw;
+    const int n_px = ext.th * ext.tw;
     const float n = static_cast<float>(n_px);
     float v[kEmaPerThread];
     float s1 = 0.0f, s2 = 0.0f;
@@ -658,7 +696,7 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
       const int idx = threadIdx.x + k * kCommitThreads;
       v[k] = 0.0f;
       if (idx < n_px) {
-        const int i = idx / p.tw, j = idx % p.tw;
+        const int i = idx / ext.tw, j = idx % ext.tw;
         const float patch = __fmul_rn(
             static_cast<float>(frame[static_cast<size_t>(best.y + i) * p.frame_w + best.x + j]),
             kU8Scale);
@@ -671,7 +709,7 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
     }
     for (int idx = threadIdx.x + kEmaPerThread * kCommitThreads; idx < n_px;
          idx += kCommitThreads) {
-      const int i = idx / p.tw, j = idx % p.tw;
+      const int i = idx / ext.tw, j = idx % ext.tw;
       const float patch = __fmul_rn(
           static_cast<float>(frame[static_cast<size_t>(best.y + i) * p.frame_w + best.x + j]),
           kU8Scale);
@@ -692,7 +730,7 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
     }
     for (int idx = threadIdx.x + kEmaPerThread * kCommitThreads; idx < n_px;
          idx += kCommitThreads) {
-      c += __fsub_rn(tpl[(idx / p.tw) * tw4 + idx % p.tw], new_mean);  // this thread's own store
+      c += __fsub_rn(tpl[(idx / ext.tw) * tw4 + idx % ext.tw], new_mean);  // this thread's own store
     }
     new_sum_tc = block_sum2(make_float2(c, 0.0f), s_sum2).x;
   }
@@ -719,10 +757,11 @@ using ScoreKernel = void (*)(const uint8_t*, const float*, const int32_t*, const
                             float*, int32_t*, float*, int32_t*, Params, int);
 
 // The score kernel's instantiation for a template staged whole or in
-// chunks, and for one lane or many.
-ScoreKernel score_kernel_for(bool whole, bool one) {
-  if (whole) return one ? score_kernel<true, true> : score_kernel<true, false>;
-  return one ? score_kernel<false, true> : score_kernel<false, false>;
+// chunks, for one lane or many, and for lanes with extents of their own.
+ScoreKernel score_kernel_for(bool whole, bool one, bool ext) {
+  if (one) return whole ? score_kernel<true, true, false> : score_kernel<false, true, false>;
+  if (ext) return whole ? score_kernel<true, false, true> : score_kernel<false, false, true>;
+  return whole ? score_kernel<true, false, false> : score_kernel<false, false, false>;
 }
 
 // Lets a score block use `smem` bytes of dynamic shared memory, and asks for
@@ -737,8 +776,10 @@ cudaError_t set_score_smem(ScoreKernel kernel, int smem) {
 }
 
 // One chunk of n_frames over n_lanes lanes: 2 * n_frames launches on `stream`.
+// ext: per-lane (th_k, tw_k) inside the th x tw template buffer, or null.
 int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int n_frames,
-                 int frame_h, int frame_w, int th, int tw, int32_t* state_i, float* state_f,
+                 int frame_h, int frame_w, int th, int tw, const int32_t* ext,
+                 int32_t* state_i, float* state_f,
                  float* tpl, float* part_val, int32_t* part_yx, int n_blocks,
                  float* split_part, int32_t* split_count, float* rows, int radius_x,
                  int radius_y, int lost_threshold, int enable_global, float min_conf,
@@ -755,13 +796,17 @@ int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int
   p.stage_rows = stage_rows(th, tw, n_lanes);
   p.frame_stride = frame_stride;
   p.frame_px = static_cast<long long>(frame_h) * frame_w;
+  p.ext = ext;
   p.min_conf = min_conf; p.global_conf = global_conf; p.strong_conf = strong_conf;
   p.lr = lr; p.one_minus_lr = one_minus_lr;
-  if (p.stage_rows < 1 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1) {
+  // A one-lane launch runs the kOne instantiation, which has no lane table
+  // and takes the launch's extent: an extent table needs two lanes or more.
+  if (p.stage_rows < 1 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1 ||
+      (ext != nullptr && n_lanes < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = score_smem_bytes(p.stage_rows, tw, n_lanes);
-  const ScoreKernel score = score_kernel_for(p.stage_rows == th, n_lanes == 1);
+  const ScoreKernel score = score_kernel_for(p.stage_rows == th, n_lanes == 1, ext != nullptr);
   cudaError_t err = set_score_smem(score, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int t = 0; t < n_frames; ++t) {
@@ -769,8 +814,13 @@ int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int
         frames, tpl, state_i, state_f, part_val, part_yx, split_part, split_count, p, t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    commit_kernel<<<n_lanes, kCommitThreads, 0, stream>>>(
-        frames, tpl, state_i, state_f, part_val, part_yx, rows, p, t, n_frames);
+    if (ext != nullptr) {
+      commit_kernel<true><<<n_lanes, kCommitThreads, 0, stream>>>(
+          frames, tpl, state_i, state_f, part_val, part_yx, rows, p, t, n_frames);
+    } else {
+      commit_kernel<false><<<n_lanes, kCommitThreads, 0, stream>>>(
+          frames, tpl, state_i, state_f, part_val, part_yx, rows, p, t, n_frames);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -796,8 +846,8 @@ int pvot_mega_track_chunk(const uint8_t* frames, int n_frames, int frame_h, int 
                           int radius_x, int radius_y, int lost_threshold, int enable_global,
                           float min_conf, float global_conf, float strong_conf, float lr,
                           float one_minus_lr, void* stream) {
-  return launch_chunk(frames, 0, 1, n_frames, frame_h, frame_w, th, tw, state_i, state_f,
-                      tpl, part_val, part_yx, n_blocks, split_part, split_count, rows,
+  return launch_chunk(frames, 0, 1, n_frames, frame_h, frame_w, th, tw, nullptr, state_i,
+                      state_f, tpl, part_val, part_yx, n_blocks, split_part, split_count, rows,
                       radius_x, radius_y, lost_threshold, enable_global, min_conf,
                       global_conf, strong_conf, lr, one_minus_lr,
                       static_cast<cudaStream_t>(stream));
@@ -819,9 +869,42 @@ int pvot_mega_track_chunk_multi(const uint8_t* frames, long long frame_stride, i
                                 float strong_conf, float lr, float one_minus_lr,
                                 void* stream) {
   return launch_chunk(frames, frame_stride, n_lanes, n_frames, frame_h, frame_w, th, tw,
-                      state_i, state_f, tpl, part_val, part_yx, n_blocks, split_part,
+                      nullptr, state_i, state_f, tpl, part_val, part_yx, n_blocks, split_part,
                       split_count, rows, radius_x, radius_y, lost_threshold, enable_global,
                       min_conf, global_conf, strong_conf, lr, one_minus_lr,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// K3: n_objects trackers over ONE clip (frames: n_frames x frame_h x frame_w
+// u8, read by every object), 2 * n_frames launches in all; replaces
+// pvot/ops/ncc_mega.py:1246 (`mega_track_chunk_objects`, :1115).  Object k
+// reads and updates state_i + 8k, state_f + 4k and its template at tpl + k *
+// th * round_up4(tw), and writes rows + 10 * k * n_frames, as a K2 lane does.
+// ext (n_objects x 2 int32 on the device, or null when every template is th
+// x tw) gives each object's true extent (th_k, tw_k) inside its zero-padded
+// th x tw bucket (the bucketed mode): the object scores its own
+// (frame_h - th_k + 1) x (frame_w - tw_k + 1) map, commits a th_k x tw_k box
+// and updates only that corner of its template.
+//
+// What bounds it: FP32 FMA issue, about 93.7 M FMA per 80 x 80 / r60 object
+// on a local frame (4.9 G on a global one), against a frame of 0.9 MB read
+// once per step.  The design answers with one score launch a step for all
+// objects (the union balance, so an object in global search spreads over
+// the whole card beside the local ones) and the shared frame, which every
+// object's blocks read from L2 after the first.
+int pvot_mega_track_chunk_objects(const uint8_t* frames, int n_objects, int n_frames,
+                                  int frame_h, int frame_w, int th, int tw, const int32_t* ext,
+                                  int32_t* state_i, float* state_f, float* tpl,
+                                  float* part_val, int32_t* part_yx, int n_blocks,
+                                  float* split_part, int32_t* split_count, float* rows,
+                                  int radius_x, int radius_y, int lost_threshold,
+                                  int enable_global, float min_conf, float global_conf,
+                                  float strong_conf, float lr, float one_minus_lr,
+                                  void* stream) {
+  return launch_chunk(frames, 0, n_objects, n_frames, frame_h, frame_w, th, tw, ext, state_i,
+                      state_f, tpl, part_val, part_yx, n_blocks, split_part, split_count, rows,
+                      radius_x, radius_y, lost_threshold, enable_global, min_conf,
+                      global_conf, strong_conf, lr, one_minus_lr,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -837,7 +920,7 @@ int pvot_mega_score_blocks_per_sm(int th, int tw, int n_lanes) {
   const int rows = stage_rows(th, tw, n_lanes);
   if (rows < 1) return -1;
   const int smem = score_smem_bytes(rows, tw, n_lanes);
-  const ScoreKernel score = score_kernel_for(rows == th, n_lanes == 1);
+  const ScoreKernel score = score_kernel_for(rows == th, n_lanes == 1, false);
   int n = 0;
   if (set_score_smem(score, smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, score, kScoreThreads, smem) !=

@@ -1,5 +1,6 @@
-"""End-to-end multi-stream serving: S live video streams on one card (the
-port of pvot/io/serving.py `serve_streams`, `serve_streams_grouped`).
+"""End-to-end serving on one card: S live video streams, or K objects in one
+live stream (the port of pvot/io/serving.py `serve_streams`,
+`serve_streams_grouped`, `serve_objects`).
 
   decode   one background decode/gray thread per stream
            (pvot_torch.io.pipeline.FramePipeline: native C++ ring +
@@ -10,7 +11,9 @@ port of pvot/io/serving.py `serve_streams`, `serve_streams_grouped`).
            side CUDA stream and ends in an event that the compute stream
            waits on
   compute  every chunk of every stream is one mega_track_chunk_multi call
-           (2C kernel launches for all S streams), global search included
+           (2C kernel launches for all S streams), global search included;
+           serve_objects: every chunk of the one stream is one
+           mega_track_chunk_objects call for all K objects
   records  come back with a non-blocking copy into pinned host memory and
            are read `pipeline_depth` chunks later; a staging slot (its host
            frames, device frames and host records) is reused only after the
@@ -18,6 +21,7 @@ port of pvot/io/serving.py `serve_streams`, `serve_streams_grouped`).
 
 Streams may end at different times: an ended stream's lanes carry n_valid = 0
 (the kernel commits nothing for them) until every stream is drained.
+serve_objects runs the same loop over one feed, with a lane per object.
 Heterogeneous inputs (mixed frame sizes or template sizes) serve through
 serve_streams_grouped: one serve_streams call per geometry group, the groups
 in host threads of their own, each on its own CUDA streams.
@@ -39,7 +43,9 @@ from pvot_torch.config import TrackerConfig
 from pvot_torch.io.pipeline import FramePipeline
 from pvot_torch.ops.ncc_mega import N_LANES, MegaGeometry
 from pvot_torch.parallel.multi import num_streams, stack_states, unstack_state
-from pvot_torch.tracker.mega import _rows_to_output, mega_chunk_step_multi
+from pvot_torch.tracker.mega import (
+    _rows_to_output, bucket_extents, mega_chunk_step_multi, mega_chunk_step_objects,
+)
 from pvot_torch.tracker.state import StepOutput, TrackerState
 
 
@@ -136,8 +142,55 @@ def serve_streams(
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     device = torch.device(devices[0]) if devices else states.template.device
     MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(n)
-    return _serve_streams_mega(frame_iters, states, tuple(frame_shape), config,
-                               chunk_size, timings, max(1, pipeline_depth), device)
+
+    def step(frames, st, n_real):
+        return mega_chunk_step_multi(frames, st, n_real, config)
+
+    return _serve_mega(frame_iters, states, tuple(frame_shape), np.arange(n), step,
+                       chunk_size, timings, max(1, pipeline_depth), device)
+
+
+def serve_objects(
+    frame_iter: Iterable[np.ndarray],
+    states: TrackerState,
+    frame_shape: Tuple[int, int],
+    config: Optional[TrackerConfig] = None,
+    backend: str = "mega",
+    chunk_size: int = 32,
+    timings: Optional[list] = None,
+    highest: bool = True,
+    pipeline_depth: int = 2,
+    devices: Optional[Sequence] = None,
+):
+    """Serve ONE live frame stream with K trackers end to end
+    (pvot/io/serving.py:570): one decode thread, every chunk through the
+    multi-object kernel for all K objects, the chunks' copies and records
+    overlapped as in serve_streams.
+
+    states: a stacked TrackerState with a leading K axis, one template size
+    (pvot_torch.parallel.multi.init_multi_state) or mixed sizes in a shared
+    bucket (init_multi_state_bucketed).  The objects are served on
+    devices[0] when given, else on the states' device.
+
+    Returns (final stacked TrackerState on that device, host StepOutput with
+    the (F, K) leading layout, F = 0 included).  timings, when given a list,
+    receives one (frames, seconds) pair per chunk.  The options the port
+    does not have yet raise as in serve_streams."""
+    _check_options(backend, highest, devices)
+    config = config or TrackerConfig()
+    k = num_streams(states)
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    device = torch.device(devices[0]) if devices else states.template.device
+    extents = bucket_extents(states)
+    MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(k)
+
+    def step(frames, st, n_real):
+        return mega_chunk_step_objects(frames[0], st, int(n_real[0]), config, extents)
+
+    final, outs = _serve_mega([frame_iter], states, tuple(frame_shape), np.zeros(k, int), step,
+                              chunk_size, timings, max(1, pipeline_depth), device)
+    return final, StepOutput(*(np.stack(xs, axis=1) for xs in zip(*outs)))
 
 
 class _Slot:
@@ -162,12 +215,17 @@ class _Slot:
             self.done.synchronize()
 
 
-def _serve_streams_mega(frame_iters, states, frame_shape, config, chunk_size: int,
-                        timings: Optional[list], depth: int, device: torch.device):
+def _serve_mega(frame_iters, states, frame_shape, lane_feed: np.ndarray, step,
+                chunk_size: int, timings: Optional[list], depth: int, device: torch.device):
+    """The serving loop over N feeds and L lanes: lane l tracks feed
+    lane_feed[l]; step(frames (N, C, H, W) on the device, state, n_real (N,))
+    runs one chunk and returns (rows (L, C, 10), the next state).  Returns
+    (final state, L lists' host StepOutputs, each of its feed's length)."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
     n_streams = len(frame_iters)
+    n_lanes = len(lane_feed)
     cuda = device.type == "cuda"
     if cuda:
         copy_stream = torch.cuda.Stream(device)
@@ -176,10 +234,10 @@ def _serve_streams_mega(frame_iters, states, frame_shape, config, chunk_size: in
         on_compute = torch.cuda.stream(compute)
     else:
         on_compute = contextlib.nullcontext()
-    slots = [_Slot((n_streams, chunk_size, *frame_shape), (n_streams, chunk_size, N_LANES),
+    slots = [_Slot((n_streams, chunk_size, *frame_shape), (n_lanes, chunk_size, N_LANES),
                    device) for _ in range(depth + 1)]
     feeds: List[_StreamFeed] = []
-    outs: List[list] = [[] for _ in range(n_streams)]
+    outs: List[list] = [[] for _ in range(n_lanes)]
     inflight: deque = deque()
     fillers = ThreadPoolExecutor(max_workers=n_streams)
     mark = time.perf_counter()
@@ -188,14 +246,12 @@ def _serve_streams_mega(frame_iters, states, frame_shape, config, chunk_size: in
         nonlocal mark
         slot.wait()
         host = slot.rows.numpy()
-        committed = 0
-        for s, n in enumerate(slot.n_real.tolist()):
+        for lane, n in enumerate(slot.n_real[lane_feed].tolist()):
             if n:
-                outs[s].append(_rows_to_output(host[s, :n]))
-                committed += n
+                outs[lane].append(_rows_to_output(host[lane, :n]))
         now = time.perf_counter()
         if timings is not None:
-            timings.append((committed, now - mark))
+            timings.append((int(slot.n_real.sum()), now - mark))
         mark = now
 
     try:
@@ -218,7 +274,7 @@ def _serve_streams_mega(frame_iters, states, frame_shape, config, chunk_size: in
                     slot.copied.record()
                 compute.wait_event(slot.copied)
             with on_compute:
-                rows, st = mega_chunk_step_multi(slot.frames, st, n_real, config)
+                rows, st = step(slot.frames, st, n_real)
                 slot.rows.copy_(rows, non_blocking=cuda)
                 if cuda:
                     slot.done.record()
@@ -281,7 +337,9 @@ def serve_streams_grouped(
     def run_group(key, idxs):
         group_timings: Optional[list] = [] if timings is not None else None
         final, outs = serve_streams(
-            [frame_iters[i] for i in idxs], stack_states([states_list[i] for i in idxs]),
+            [frame_iters[i] for i in idxs],
+            stack_states([states_list[i] for i in idxs],
+                         devices[0] if devices else states_list[idxs[0]].template.device),
             key[0], config, chunk_size=chunk_size, timings=group_timings,
             pipeline_depth=pipeline_depth, devices=devices,
         )

@@ -41,6 +41,10 @@ SIGNATURES = {
         [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
         ctypes.c_int,
     ),
+    "pvot_mega_track_chunk_objects": (
+        [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        ctypes.c_int,
+    ),
     "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
     "pvot_mega_score_blocks_per_sm": ([_I, _I, _I], ctypes.c_int),
     "pvot_cuda_error_string": ([_I], ctypes.c_char_p),

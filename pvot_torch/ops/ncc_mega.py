@@ -1,16 +1,17 @@
-"""Whole chunks of tracking, one stream or many: the port of
-pvot/ops/ncc_mega.py `mega_track_chunk` (:818, K1) and `mega_track_chunk_multi`
-(:966, K2) at their f32 tier, with in-kernel global search.
+"""Whole chunks of tracking, one stream, many streams or many objects: the
+port of pvot/ops/ncc_mega.py `mega_track_chunk` (:818, K1),
+`mega_track_chunk_multi` (:966, K2) and `mega_track_chunk_objects` (:1115,
+K3) at their f32 tier, with in-kernel global search.
 
-`mega_track_chunk` (one stream) and `mega_track_chunk_multi` (S streams)
-run the chunk through the hand-written Hopper kernels
-(pvot_torch/csrc/ncc_mega.cu: per frame one scoring launch over the whole card
-for every stream and one commit launch with a block per stream, the states
-resident in device memory) when their tensors lie on a CUDA device, and
-through `mega_track_chunk_reference` / `mega_track_chunk_multi_reference`,
-the plain PyTorch versions beside them, when they lie on the CPU.  A CUDA
-tensor never reaches a plain version: there the kernel runs or the call
-raises.
+`mega_track_chunk` (one stream), `mega_track_chunk_multi` (S streams) and
+`mega_track_chunk_objects` (K objects over one clip, templates of one size
+or zero-padded into a shared bucket) run the chunk through the hand-written
+Hopper kernels (pvot_torch/csrc/ncc_mega.cu: per frame one scoring launch
+over the whole card for every lane and one commit launch with a block per
+lane, the states resident in device memory) when their tensors lie on a
+CUDA device, and through the plain PyTorch versions beside them
+(`..._reference`) when they lie on the CPU.  A CUDA tensor never reaches a
+plain version: there the kernel runs or the call raises.
 
 They return (rows, final templates): the per-frame records in fields O_*
 (pvot/ops/ncc_mega.py:78-81; O_POISON is always 0), (F, 10) or (S, F, 10)
@@ -47,7 +48,7 @@ MAX_SPAN = 512
 # csrc/ncc_mega.cu).
 SMEM_LIMIT = 232_448
 _TILE_H, _TILE_W, _SPLIT = 8, 16, 16
-_LANE_WORK_BYTES = 52
+_LANE_WORK_BYTES = 60
 
 
 def score_smem_bytes(rows: int, tw: int, table_lanes: int) -> int:
@@ -67,7 +68,11 @@ class MegaGeometry:
     """Static shapes of one chunk and the port's envelope, which is the JAX
     mega kernel's: templates up to 256 x 256, spans up to 512.  A score block
     stages the whole template beside its input tile when it fits in shared
-    memory, else chunks of rows (`stage_rows`)."""
+    memory, else chunks of rows (`stage_rows`).
+
+    In K3's bucketed mode `templ_shape` is the shared bucket: it sizes
+    shared memory and `stage_rows`, while each object's map, window and
+    global search follow its own extent in the kernel's extent table."""
 
     def __init__(self, frame_shape, templ_shape, config: TrackerConfig):
         self.frame_h, self.frame_w = frame_shape
@@ -206,6 +211,12 @@ def mega_track_chunk_reference(
     return rows.to(frames_u8.device), tpl
 
 
+def _per_lane(n_valid, k: int) -> list:
+    """n_valid as K ints, from a tensor, a sequence or one count for all."""
+    values = torch.as_tensor(n_valid).reshape(-1)
+    return [int(v) for v in values.expand(k).tolist()]
+
+
 def mega_track_chunk_multi_reference(
     frames_u8: torch.Tensor,
     bbox: torch.Tensor,
@@ -219,7 +230,7 @@ def mega_track_chunk_multi_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the multi-stream kernel: `mega_track_chunk_reference`
     on each stream with its own state and its own n_valid."""
-    n_valid = [int(v) for v in torch.as_tensor(n_valid).reshape(-1).tolist()]
+    n_valid = _per_lane(n_valid, frames_u8.shape[0])
     outs = [
         mega_track_chunk_reference(
             frames_u8[s], bbox[s], template[s], t_mean[s], t_std[s],
@@ -230,30 +241,87 @@ def mega_track_chunk_multi_reference(
     return torch.stack([r for r, _ in outs]), torch.stack([t for _, t in outs])
 
 
-def _n_valid_columns(values, s: int, dev: torch.device) -> torch.Tensor:
-    """(s, 2) int32 on `dev`, each stream's n_valid twice (the last two state
-    fields), from a tensor, a sequence or a scalar, without a blocking copy:
-    a host array goes through pinned memory."""
-    if isinstance(values, torch.Tensor) and values.device == dev:
-        return values.reshape(s, 1).expand(s, 2).to(torch.int32)
-    host = torch.as_tensor(values).reshape(s, 1).to(torch.int32)
-    if bool((host == host[0]).all()):
-        return torch.full((s, 2), int(host[0]), dtype=torch.int32, device=dev)
-    host = host.expand(s, 2).contiguous()
+def object_extents(template: torch.Tensor, bucket_extents=None) -> list:
+    """Each object's true template extent (th_k, tw_k) inside the (K, th, tw)
+    template buffer: all (th, tw) without `bucket_extents`, else those,
+    checked to lie in the bucket."""
+    k, th, tw = template.shape
+    if bucket_extents is None:
+        return [(th, tw)] * k
+    extents = [(int(eh), int(ew)) for eh, ew in bucket_extents]
+    if len(extents) != k:
+        raise ValueError(f"{len(extents)} extents for {k} objects")
+    for eh, ew in extents:
+        if not (1 <= eh <= th and 1 <= ew <= tw):
+            raise ValueError(f"extent {eh}x{ew} does not fit the {th}x{tw} bucket")
+    return extents
+
+
+def mega_track_chunk_objects_reference(
+    frames_u8: torch.Tensor,
+    bbox: torch.Tensor,
+    template: torch.Tensor,
+    t_mean: torch.Tensor,
+    t_std: torch.Tensor,
+    lost_count: torch.Tensor,
+    use_global: torch.Tensor,
+    n_valid,
+    config: TrackerConfig,
+    bucket_extents=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the multi-object kernel: `mega_track_chunk_reference`
+    for each object on the one shared chunk (F, H, W), with that object's
+    state, its n_valid and its template cropped to its true extent; the final
+    template goes back into the object's place in the bucket."""
+    extents = object_extents(template, bucket_extents)
+    n_valid = _per_lane(n_valid, len(extents))
+    rows, tpls = [], []
+    for i, (eh, ew) in enumerate(extents):
+        r, t = mega_track_chunk_reference(
+            frames_u8, bbox[i], template[i, :eh, :ew], t_mean[i], t_std[i],
+            lost_count[i], use_global[i], n_valid[i], config,
+        )
+        out = template[i].to(torch.float32).clone()
+        out[:eh, :ew] = t
+        rows.append(r)
+        tpls.append(out)
+    return torch.stack(rows), torch.stack(tpls)
+
+
+def _to_device_i32(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A small int32 host tensor on `dev` without a blocking copy: through
+    pinned memory to a CUDA device."""
+    host = host.to(torch.int32).contiguous()
     if dev.type == "cuda":
         return host.pin_memory().to(dev, non_blocking=True)
     return host.to(dev)
 
 
-def _launch(lib, multi: bool, frames: torch.Tensor, bbox, template, t_mean, t_std,
+def _n_valid_columns(values, s: int, dev: torch.device) -> torch.Tensor:
+    """(s, 2) int32 on `dev`, each lane's n_valid twice (the last two state
+    fields), from a tensor, a sequence or one count for all, without a
+    blocking copy: a host array goes through pinned memory."""
+    if isinstance(values, torch.Tensor) and values.device == dev:
+        return values.reshape(-1, 1).expand(s, 2).to(torch.int32)
+    host = torch.as_tensor(values).reshape(-1, 1).expand(s, 1).to(torch.int32)
+    if bool((host == host[0]).all()):
+        return torch.full((s, 2), int(host[0]), dtype=torch.int32, device=dev)
+    return _to_device_i32(host.expand(s, 2), dev)
+
+
+def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std,
             lost_count, use_global, n_valid, config: TrackerConfig, n_blocks: int,
-            stream):
-    """Run one C entry on S lanes: frames (S, F, H, W) u8, each lane's frames
-    contiguous, lanes `frames.stride(0)` apart; the states stacked on S, all on
-    frames' device.  Returns (CUDA error code, rows (S, F, 10), padded
-    templates (S, th, round_up4(tw)))."""
+            stream, extents=None):
+    """Run one C entry ("one", "multi" or "objects") on S lanes: frames (S, F,
+    H, W) u8, each lane's frames contiguous, lanes `frames.stride(0)` apart (0
+    for objects); the states stacked on S, all on frames' device.  extents:
+    each lane's true (th, tw) in the template buffer (default: all of it);
+    objects whose extents differ get them as the kernel's extent table.  Returns
+    (CUDA error code, rows (S, F, 10), padded templates (S, th,
+    round_up4(tw)))."""
     s, f, h, w = frames.shape
     th, tw = template.shape[-2:]
+    extents = extents or [(th, tw)] * s
     dev = frames.device
     i32, fl = torch.int32, torch.float32
     # state_i = [bx, by, bw, bh, lost, use_global, n_valid, _] per lane (the
@@ -265,9 +333,10 @@ def _launch(lib, multi: bool, frames: torch.Tensor, bbox, template, t_mean, t_st
     ], dim=1).to(i32)
     tpl = template.reshape(s, th, tw).to(fl)
     tm = t_mean.reshape(s).to(fl)
-    # sum_tc one stream at a time, so that a stream's inputs, and so its
-    # records, do not depend on how many streams share the call.
-    sum_tc = torch.stack([torch.sum(tpl[i] - tm[i]) for i in range(s)])
+    # sum_tc one lane at a time over its true extent, so that a lane's inputs,
+    # and so its records, are those of the lane alone (K1 on its template).
+    sum_tc = torch.stack([torch.sum(tpl[i, :eh, :ew].contiguous() - tm[i])
+                          for i, (eh, ew) in enumerate(extents)])
     # state_f = [t_mean, t_std, sum_tc, _] per lane (the last field is padding).
     state_f = torch.stack([tm, t_std.reshape(s).to(fl), sum_tc, sum_tc], dim=1)
     # The kernels update the templates in place, in their own buffer with the
@@ -288,7 +357,16 @@ def _launch(lib, multi: bool, frames: torch.Tensor, bbox, template, t_mean, t_st
             config.lost_frame_threshold, int(config.enable_global_search),
             f32(config.min_confidence), f32(config.global_confidence),
             f32(config.strong_confidence), f32(lr), f32(1.0 - lr), stream)
-    if multi:
+    if entry == "objects":
+        mixed = any(e != (th, tw) for e in extents)
+        ext = _to_device_i32(torch.tensor(extents), dev) if mixed else None
+        err = lib.pvot_mega_track_chunk_objects(
+            frames.data_ptr(), s, f, h, w, th, tw, None if ext is None else ext.data_ptr(),
+            state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(),
+            part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
+            split_part.data_ptr(), split_count.data_ptr(), *tail,
+        )
+    elif entry == "multi":
         err = lib.pvot_mega_track_chunk_multi(
             frames.data_ptr(), frames.stride(0), s, f, h, w, th, tw,
             state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(),
@@ -355,7 +433,7 @@ def mega_track_chunk(
     dev = frames_u8.device
     with torch.cuda.device(dev):
         err, rows, tpl_pad = _launch(
-            lib, False, frames_u8[None], bbox, template, t_mean, t_std, lost_count,
+            lib, "one", frames_u8[None], bbox, template, t_mean, t_std, lost_count,
             use_global, [int(n_valid)], config, _score_blocks(dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -410,7 +488,7 @@ def mega_track_chunk_multi(
     dev = frames_u8.device
     with torch.cuda.device(dev):
         err, rows, tpl_pad = _launch(
-            lib, True, frames_u8, bbox, template, t_mean, t_std, lost_count,
+            lib, "multi", frames_u8, bbox, template, t_mean, t_std, lost_count,
             use_global, n_valid, config, _score_blocks(dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -420,3 +498,67 @@ def mega_track_chunk_multi(
 
 
 mega_track_chunk_multi.launches = 0
+
+
+def mega_track_chunk_objects(
+    frames_u8: torch.Tensor,
+    bbox: torch.Tensor,
+    template: torch.Tensor,
+    t_mean: torch.Tensor,
+    t_std: torch.Tensor,
+    lost_count: torch.Tensor,
+    use_global: torch.Tensor,
+    n_valid,
+    config: TrackerConfig,
+    bucket_extents=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Track K objects through one chunk of ONE clip: frames (F, H, W) uint8
+    read by every object; bbox (K, 4), template (K, th, tw), t_mean, t_std,
+    lost_count, use_global and n_valid (K,) (or one n_valid for all).
+    bucket_extents: each object's true (th_k, tw_k) when the templates are
+    zero-padded into a shared (th, tw) bucket (the bucketed layout of
+    pvot_torch.parallel.multi.init_multi_state_bucketed); each object then
+    tracks exactly as `mega_track_chunk` on its own th_k x tw_k template, and
+    only that corner of its template changes.
+
+    On a CUDA device: 2F kernel launches on the current stream whatever K
+    is, no host synchronisation; `mega_track_chunk_objects.launches` grows by
+    2F.  On the CPU: the plain version."""
+    extents = object_extents(template, bucket_extents)
+    if frames_u8.device.type == "cpu":
+        return mega_track_chunk_objects_reference(
+            frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
+            n_valid, config, bucket_extents,
+        )
+    _check_cuda_inputs(frames_u8, 3, dict(
+        bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
+        lost_count=lost_count, use_global=use_global))
+    frames_u8 = frames_u8.contiguous()
+    f, h, w = frames_u8.shape
+    k = len(extents)
+    if bbox.shape != (k, 4):
+        raise ValueError(f"bbox {tuple(bbox.shape)} for {k} objects")
+    # The kernel's buffer is the smallest bucket that holds every object; a
+    # set whose objects all share one extent runs without an extent table.
+    bh, bw = max(e[0] for e in extents), max(e[1] for e in extents)
+    MegaGeometry((h, w), (bh, bw), config).check(k)
+    from pvot_torch.ops import _build
+
+    lib = _build.load_library()
+    dev = frames_u8.device
+    with torch.cuda.device(dev):
+        err, rows, tpl_pad = _launch(
+            lib, "objects", frames_u8.expand(k, f, h, w), bbox, template[:, :bh, :bw],
+            t_mean, t_std, lost_count, use_global, n_valid, config,
+            _score_blocks(dev), torch.cuda.current_stream(dev).cuda_stream, extents=extents,
+        )
+        _build.check(err, "mega_track_chunk_objects")
+        mega_track_chunk_objects.launches += 2 * f
+    if (bh, bw) == tuple(template.shape[-2:]):
+        return rows, tpl_pad[:, :, :bw].contiguous()
+    out = template.to(torch.float32).clone()
+    out[:, :bh, :bw] = tpl_pad[:, :, :bw]
+    return rows, out
+
+
+mega_track_chunk_objects.launches = 0

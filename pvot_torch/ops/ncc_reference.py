@@ -36,6 +36,20 @@ def template_stats(templ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, std
 
 
+def template_stats_bucketed(templ_padded: torch.Tensor, n) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`template_stats` of the true region of a zero-padded template
+    (pvot/ops/ncc_matmul.py:245 template_stats_bucketed): the padding's zeros
+    vanish from the sums, and `n` is the true pixel count th_k * tw_k, a
+    number or a tensor with the stack's leading shape."""
+    if not templ_padded.is_floating_point():
+        templ_padded = templ_padded.to(torch.float32)
+    n = torch.as_tensor(n, device=templ_padded.device).to(templ_padded.dtype)
+    mean = templ_padded.sum(dim=(-2, -1)) / n
+    var = (templ_padded * templ_padded).sum(dim=(-2, -1)) / n - mean * mean
+    std = torch.sqrt(torch.clamp(var, min=0.0)) + 1e-6
+    return mean, std
+
+
 def corr2_valid(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Valid-mode 2-D cross-correlation: (H, W), (h, w) -> (H-h+1, W-w+1)."""
     return F.conv2d(image[None, None], kernel[None, None])[0, 0]

@@ -1,20 +1,23 @@
 """Chunked tracking loops over the chunk kernels (pvot/tracker/mega.py
-`track_video_mega` and `track_streams_mega` in their in-kernel global-search
-mode, `mega_video_scan`, `mega_chunk_step_multi`).
+`track_video_mega`, `track_streams_mega` and `track_objects_mega` in their
+in-kernel global-search mode, `mega_video_scan`, `mega_chunk_step_multi`,
+`mega_chunk_step_objects`).
 
-Each chunk is one `mega_track_chunk` call, or one `mega_track_chunk_multi`
-call for S streams; the state passes from chunk to chunk on the device, with
-its template stats re-canonicalized through `template_stats` at every
-boundary (pvot/tracker/mega.py:65-83, per stream for S streams).  Nothing
-waits for the device between chunks: the records come to the host once, at
-the end.  The JAX version pads the tail chunk to one static length; here the
-tail chunk is simply shorter, which commits the same frames.  Global frames
-commit on the card (no poison mode, no rollback, ROADMAP R1).
+Each chunk is one `mega_track_chunk` call, one `mega_track_chunk_multi` call
+for S streams, or one `mega_track_chunk_objects` call for K objects over one
+clip; the state passes from chunk to chunk on the device, with its template
+stats re-canonicalized at every boundary (pvot/tracker/mega.py:65-83 and
+:216-236, per stream or object; over each object's true pixels when the
+templates sit in a shared bucket).  Nothing waits for the device between
+chunks: the records come to the host once, at the end.  The JAX version pads
+the tail chunk to one static length; here the tail chunk is simply shorter,
+which commits the same frames.  Global frames commit on the card (no poison
+mode, no rollback, no support probe: ROADMAP R1, R2).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,22 +25,28 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.ops.ncc_mega import (
     O_BH, O_BW, O_BX, O_BY, O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG,
-    mega_track_chunk, mega_track_chunk_multi,
+    mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects,
 )
-from pvot_torch.ops.ncc_reference import template_stats
+from pvot_torch.ops.ncc_reference import template_stats, template_stats_bucketed
 from pvot_torch.tracker.state import StepOutput, TrackerState
 
 
-def _state_from_chunk(rows: torch.Tensor, tplout: torch.Tensor) -> TrackerState:
+def _state_from_chunk(rows: torch.Tensor, tplout: torch.Tensor,
+                      bucketed: bool = False) -> TrackerState:
     """Chunk-final state from the last record and the final template: rows
     (F, 10) and (th, tw) for one stream, or (S, F, 10) and (S, th, tw) for a
-    stacked state."""
+    stacked state.  bucketed: the templates sit zero-padded in a shared
+    bucket, and their stats are over each one's true pixels, bbox_w x bbox_h
+    (pvot/tracker/mega.py:216 `_state_from_chunk_bucketed`)."""
     last = rows[..., -1, :]
-    t_mean, t_std = template_stats(tplout)
 
     def i32(lane):
         return last[..., lane].to(torch.int32)
 
+    if bucketed:
+        t_mean, t_std = template_stats_bucketed(tplout, i32(O_BW) * i32(O_BH))
+    else:
+        t_mean, t_std = template_stats(tplout)
     return TrackerState(
         bbox_x=i32(O_BX), bbox_y=i32(O_BY), bbox_w=i32(O_BW), bbox_h=i32(O_BH),
         template=tplout, t_mean=t_mean, t_std=t_std, lost_count=i32(O_LOST),
@@ -98,9 +107,6 @@ def mega_chunk_step_multi(
     uint8 on the states' device, a stacked state, n_valid per stream (S,) or
     one count for all.  Returns (rows (S, C, 10) on the device, the
     chunk-final stacked state)."""
-    s = int(states.t_mean.shape[0])
-    if isinstance(n_valid, int):
-        n_valid = [n_valid] * s
     rows, tplout = mega_track_chunk_multi(
         chunk, torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
         states.t_std, states.lost_count, states.use_global, n_valid, config,
@@ -147,4 +153,73 @@ def track_streams_mega(
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
     host = torch.cat(all_rows, dim=1).cpu().numpy()  # (S, F, 10)
+    return cur, _rows_to_output(host.transpose(1, 0, 2))
+
+
+def bucket_extents(states: TrackerState) -> Optional[Tuple[Tuple[int, int], ...]]:
+    """The objects' true template extents (bbox_h, bbox_w) when a stacked
+    state holds templates of mixed sizes in a shared bucket
+    (pvot_torch.parallel.multi.init_multi_state_bucketed), else None: as
+    pvot/tracker/mega.py:1063-1068 derives them.  Reads the boxes once from
+    the device."""
+    th, tw = states.template.shape[-2:]
+    extents = tuple(zip(states.bbox_h.tolist(), states.bbox_w.tolist()))
+    return extents if any(e != (th, tw) for e in extents) else None
+
+
+def mega_chunk_step_objects(
+    chunk: torch.Tensor,
+    states: TrackerState,
+    n_valid,
+    config: TrackerConfig,
+    extents=None,
+) -> Tuple[torch.Tensor, TrackerState]:
+    """One chunk of K objects over one clip (pvot/tracker/mega.py:242): chunk
+    (C, H, W) uint8 on the states' device, a stacked state, n_valid for all
+    objects (the one clip's valid frames).  extents: `bucket_extents` of the
+    states, for templates of mixed sizes.  Returns (rows (K, C, 10) on the
+    device, the chunk-final stacked state)."""
+    rows, tplout = mega_track_chunk_objects(
+        chunk, torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
+        states.t_std, states.lost_count, states.use_global, n_valid, config,
+        bucket_extents=extents,
+    )
+    return rows, _state_from_chunk(rows, tplout, bucketed=extents is not None)
+
+
+def track_objects_mega(
+    frames,
+    states: TrackerState,
+    config: TrackerConfig = TrackerConfig(),
+    chunk_size: int = 256,
+    device=None,
+) -> Tuple[TrackerState, StepOutput]:
+    """Track K objects through ONE pre-decoded uint8 clip (F, H, W) on
+    `device` (default: the states' device): every chunk is one
+    `mega_track_chunk_objects` call for all K objects.
+
+    `states` is a stacked state: one template size
+    (pvot_torch.parallel.multi.init_multi_state), or mixed sizes in a shared
+    bucket (init_multi_state_bucketed), told apart by bbox_w / bbox_h as
+    pvot/tracker/mega.py:1063-1068 does.  Returns (final stacked state on
+    `device`, StepOutput with the (F, K) leading layout), as
+    pvot.tracker.mega.track_objects_mega does in its in-kernel global mode."""
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    device = torch.device(device) if device is not None else states.template.device
+    frames = torch.as_tensor(frames, device=device)
+    if frames.ndim != 3 or frames.dtype != torch.uint8:
+        raise ValueError(f"expected (F, H, W) uint8 frames, got {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    k = int(states.t_mean.shape[0])
+    cur = states.to(device)
+    extents = bucket_extents(cur)
+    all_rows = []
+    for start in range(0, frames.shape[0], chunk_size):
+        chunk = frames[start : start + chunk_size]
+        rows, cur = mega_chunk_step_objects(chunk, cur, chunk.shape[0], config, extents)
+        all_rows.append(rows)
+    if not all_rows:
+        return cur, _rows_to_output(np.zeros((0, k, 10), np.float32))
+    host = torch.cat(all_rows, dim=1).cpu().numpy()  # (K, F, 10)
     return cur, _rows_to_output(host.transpose(1, 0, 2))

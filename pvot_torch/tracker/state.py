@@ -1,7 +1,10 @@
 """Tracker state (pvot/tracker/state.py) as torch tensors.
 
 The state lives on one device: every field is a tensor there, so a tracking
-loop that keeps it on the card never waits for the host between frames or chunks.
+loop that keeps it on the card never waits for the host between frames or
+chunks.  The functions that build a state put it on the current CUDA device
+unless the caller names a device; the CPU is only ever an explicit
+`device="cpu"` (`default_device`).
 """
 
 from __future__ import annotations
@@ -46,17 +49,30 @@ class StepOutput(NamedTuple):
     updated: np.ndarray  # bool (F,): the bbox was accepted
 
 
+def default_device(device=None) -> torch.device:
+    """`device`, or the current CUDA device when none is given.  Without a
+    CUDA device the call raises: the CPU is never chosen on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device: pass device="cpu" to build the state on the CPU'
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def init_state(
     template, roi: Tuple[int, int, int, int], device=None
 ) -> TrackerState:
-    """Initial state from the ROI and its float32 template patch."""
+    """Initial state from the ROI and its float32 template patch, on `device`
+    (default: the current CUDA device)."""
     x, y, w, h = roi
-    template = torch.as_tensor(template, dtype=torch.float32, device=device)
-    if tuple(template.shape) != (h, w):
+    if tuple(np.shape(template)) != (h, w):
         raise ValueError(
-            f"template shape {tuple(template.shape)} != roi (h={h}, w={w})"
+            f"template shape {tuple(np.shape(template))} != roi (h={h}, w={w})"
         )
-    dev = template.device
+    dev = default_device(device)
+    template = torch.as_tensor(template, dtype=torch.float32, device=dev)
     t_mean, t_std = template_stats(template)
 
     def i32(v):

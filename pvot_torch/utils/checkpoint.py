@@ -35,9 +35,9 @@ def save_state(path: str, state: TrackerState) -> str:
     return path
 
 
-def load_state(path: str, device="cpu") -> TrackerState:
+def load_state(path: str, device=None) -> TrackerState:
     """Load a TrackerState saved by save_state (of either package) onto
-    `device`."""
+    `device` (default: the current CUDA device)."""
     if not os.path.exists(path):
         path = normalize_path(path)
     with np.load(path) as data:

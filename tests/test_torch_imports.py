@@ -52,9 +52,11 @@ from pvot_torch.io import serving
 from pvot_torch.tracker import mega
 same = [pvot_torch.serve_streams is serving.serve_streams,
         pvot_torch.serve_streams_grouped is serving.serve_streams_grouped,
-        pvot_torch.track_streams_mega is mega.track_streams_mega]
+        pvot_torch.track_streams_mega is mega.track_streams_mega,
+        pvot_torch.serve_objects is serving.serve_objects,
+        pvot_torch.track_objects_mega is mega.track_objects_mega]
 try:
-    pvot_torch.serve_objects
+    pvot_torch.track_stream
     missing = False
 except AttributeError:
     missing = True
@@ -74,7 +76,7 @@ def test_serving_entry_points_load_lazily():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"before": [], "same": [True, True, True], "missing": True}
+    assert got == {"before": [], "same": [True] * 5, "missing": True}
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]
     assert scripts["pvot-torch-serve"] == "pvot_torch.cli.serve:main"

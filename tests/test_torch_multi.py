@@ -75,7 +75,7 @@ def streams():
 
 
 def _multi_args(streams):
-    states = stack_states([state_from_numpy(s[1]) for s in streams])
+    states = stack_states([state_from_numpy(s[1], device="cpu") for s in streams], device="cpu")
     frames = torch.from_numpy(np.stack([s[0][1:] for s in streams]))
     return frames, (torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
                     states.t_std, states.lost_count, states.use_global)
@@ -164,7 +164,7 @@ def test_plain_chunk_160_template_matches_jax():
     kw = dict(search_radius_x=6, search_radius_y=6)
     js, jo = jax_track_video(frames[1:], st, JaxConfig(**kw), strategy="fused",
                              backend="xla", chunk_size=4)
-    s = state_from_numpy(start)
+    s = state_from_numpy(start, device="cpu")
     rows, tpl = mega_track_chunk_reference(
         torch.from_numpy(frames[1:]), torch.stack(list(s.bbox)), s.template, s.t_mean,
         s.t_std, s.lost_count, s.use_global, 4, pvot_torch.TrackerConfig(**kw))

@@ -83,7 +83,7 @@ def test_reenter_case_exercises_global_search(cases):
                                         ("reenter", 59), ("reenter", 16)])
 def test_track_video_mega_matches_jax(cases, name, chunk):
     frames, start, kw, want_state, want = cases[name]
-    state = state_from_numpy(start)
+    state = state_from_numpy(start, device="cpu")
     got_state, got = pvot_torch.track_video_mega(
         frames[1:], state, pvot_torch.TrackerConfig(**kw), chunk_size=chunk, device="cpu"
     )
@@ -96,7 +96,8 @@ def test_track_video_mega_matches_jax(cases, name, chunk):
 def test_track_video_matches_jax(cases, name):
     frames, start, kw, want_state, want = cases[name]
     got_state, got = pvot_torch.track_video(
-        frames[1:], state_from_numpy(start), pvot_torch.TrackerConfig(**kw), device="cpu"
+        frames[1:], state_from_numpy(start, device="cpu"), pvot_torch.TrackerConfig(**kw),
+        device="cpu"
     )
     _assert_outputs(got, want)
     _assert_state(got_state, want_state)
@@ -106,19 +107,20 @@ def test_init_state_matches_jax(cases):
     frames, start, _, _, _ = cases["small"]
     roi = tuple(int(start[k]) for k in ("bbox_x", "bbox_y", "bbox_w", "bbox_h"))
     x, y, w, h = roi
-    st = pvot_torch.init_state(gray_u8_to_f32(frames[0])[y : y + h, x : x + w], roi)
+    st = pvot_torch.init_state(gray_u8_to_f32(frames[0])[y : y + h, x : x + w], roi,
+                               device="cpu")
     got = state_to_numpy(st)
     np.testing.assert_array_equal(got["template"], start["template"])
     np.testing.assert_allclose([got["t_mean"], got["t_std"]],
                                [start["t_mean"], start["t_std"]], atol=1e-6)
     with pytest.raises(ValueError, match="template shape"):
-        pvot_torch.init_state(np.zeros((3, 4), np.float32), (0, 0, 3, 4))
+        pvot_torch.init_state(np.zeros((3, 4), np.float32), (0, 0, 3, 4), device="cpu")
 
 
 def test_state_numpy_round_trip(cases):
     _, start, _, _, _ = cases["reenter"]
     d = dict(start, use_global=np.bool_(True), lost_count=np.int32(7))
-    st = state_from_numpy(d)
+    st = state_from_numpy(d, device="cpu")
     assert st.template.dtype == torch.float32 and st.bbox_x.dtype == torch.int32
     assert st.use_global.dtype == torch.bool
     back = state_to_numpy(st)
@@ -130,6 +132,57 @@ def test_state_numpy_round_trip(cases):
 
 def test_empty_clip(cases):
     frames, start, _, _, _ = cases["small"]
-    st, out = pvot_torch.track_video_mega(frames[:0], state_from_numpy(start), device="cpu")
+    st, out = pvot_torch.track_video_mega(frames[:0], state_from_numpy(start, device="cpu"),
+                                         device="cpu")
     assert out.bbox.shape == (0, 4) and out.score.shape == (0,)
     assert int(st.bbox_x) == int(start["bbox_x"])
+
+
+def _builders(start, tmp_path):
+    """name -> a call that builds a state with the given device (or none)."""
+    from pvot_torch.parallel.multi import (
+        init_multi_state, init_multi_state_bucketed, stack_states,
+    )
+    from pvot_torch.utils.checkpoint import load_state, save_state
+
+    roi = tuple(int(start[k]) for k in ("bbox_x", "bbox_y", "bbox_w", "bbox_h"))
+    t = start["template"].copy()
+    path = save_state(str(tmp_path / "state"), state_from_numpy(start, device="cpu"))
+    one = state_from_numpy(start, device="cpu")
+    return {
+        "init_state": lambda **kw: pvot_torch.init_state(t, roi, **kw),
+        "init_multi_state": lambda **kw: init_multi_state([t, t], [roi, roi], **kw),
+        "init_multi_state_bucketed": lambda **kw: init_multi_state_bucketed(
+            [t, t[:8, :12]], [roi, (0, 0, 12, 8)], **kw),
+        "stack_states": lambda **kw: stack_states([one, one], **kw),
+        "state_from_numpy": lambda **kw: state_from_numpy(start, **kw),
+        "load_state": lambda **kw: load_state(path, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["init_state", "init_multi_state", "init_multi_state_bucketed",
+                                  "stack_states", "state_from_numpy", "load_state"])
+def test_states_default_to_the_card(cases, tmp_path, monkeypatch, name):
+    """A state goes to the current CUDA device unless the caller names one:
+    with no CUDA device the call raises and names device="cpu" (the port
+    never moves to the CPU on its own); device="cpu" builds it there."""
+    build = _builders(cases["small"][1], tmp_path)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()
+    st = build(device="cpu")
+    assert all(v.device.type == "cpu" for v in st)
+
+
+def test_stack_states_keeps_the_states_device(cases, monkeypatch):
+    """States that already share a device other than the CPU stay there
+    (a card other than the current one, here the meta device), and states on
+    mixed devices go to the current CUDA device."""
+    from pvot_torch.parallel.multi import stack_states
+
+    one = state_from_numpy(cases["small"][1], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    st = stack_states([one.to("meta"), one.to("meta")])
+    assert all(v.device.type == "meta" and v.shape[0] == 2 for v in st)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        stack_states([one.to("meta"), one])

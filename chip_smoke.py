@@ -58,12 +58,42 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      track_video_mega on that stream alone; K2 must have launched twice per
      frame step, K1 and K3 not at all; print aggregate and per-stream
      frames/s;
-  8. print the kernels' JSON line (each kernel's time beside its plain
+  8. hold the per-frame engines' kernels against their plain versions: K4
+     (dense maps) at 720p/80, 1080p/160, odd shapes, u8 and f32, within 1e-4,
+     and batched over 8 frames equal to 8 single calls; K5 (fused region
+     argmax) on bench and random frames, windows whole, partly and fully
+     masked, lanes sharing a frame and each with its own, u8 and f32: value
+     within 1e-5, (x, y) exactly, and a forced tie to the window's first
+     position;
+  9. drive this slice's main path, track_stream(backend="shared") over the
+     bench clip's 2048 frames, with the counters reset just before: 0 px,
+     equal under the contract to track_video_mega, K5 launched once a frame
+     and nothing else; print frames/s and host reads a frame beside
+     track_video_mega's;
+ 10. the same through the pvot-torch CLI (--shared) over its synthetic clip
+     of the bench geometry: 0 px, equal to track_video_mega, K5 only;
+ 11. re-acquisition at 720p: K4 once per global frame, K5 once per local
+     frame, equal to the plain engine (the step on the kernels' plain
+     versions, on the card);
+ 12. 1080p/160/r160 (span 321: the K4 region path) with global frames, equal
+     to the plain engine; a local frame's search timed both ways, K4 +
+     argmax and K5 forced over the span;
+ 13. several lanes: K = 4 objects (one from outside the frame) and 4 streams
+     in a masked chunk, one K5 launch a frame step, and a bucketed set, each
+     lane equal to the plain engine on it alone;
+ 14. batch mode at n = 4 with a 3-frame tail;
+ 15. TF32: the xla engine on the card with PyTorch's default TF32 flags,
+     equal to the plain engine; then the kernels' times at the main path's
+     shapes;
+ 16. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
      FP32 peak and its bytes at the memory rate, counted from this run's
      records; `library_ms` is null, as no PyTorch call computes a chunk of
-     tracking, and `conv2d_corr_ms` times F.conv2d on the correlation term
-     alone as a yardstick), the card's line, and last the result line.
+     tracking or a masked NCC argmax, and `conv2d_corr_ms` times F.conv2d on
+     the correlation term alone as a yardstick), the card's line, and last
+     the result line.
+
+TF32 is off from phase 3 on, except in phase 15.
 """
 
 from __future__ import annotations
@@ -114,15 +144,22 @@ def compare(name, got, want, n_px: int = 6400) -> float:
     return max(float(np.abs(rk - rp)[both].max(initial=0.0)), d_tpl)
 
 
-def compare_outputs(name, got, want) -> None:
-    """Two StepOutputs of one stream under the contract."""
+def compare_outputs(name, got, want, n_px: int = 6400) -> None:
+    """Two StepOutputs of one stream under the contract (the score bounds
+    scaled by N / 6400 for templates of N > 6400 px, as in `compare`)."""
     for field in ("bbox", "updated", "used_global"):
         if not np.array_equal(getattr(got, field), getattr(want, field)):
-            raise AssertionError(f"{name}: {field} differs")
+            first = int(np.nonzero((getattr(got, field) != getattr(want, field)).reshape(
+                len(got.bbox), -1).any(axis=1))[0][0])
+            raise AssertionError(f"{name}: {field} differs first at record {first}: "
+                                 f"{got.bbox[first].tolist()} {got.score[first]} vs "
+                                 f"{want.bbox[first].tolist()} {want.score[first]}")
+    scale = max(1.0, n_px / 6400)
     acc = want.updated
-    if (np.abs(got.score[acc] - want.score[acc]).max(initial=0.0) > SCORE_ACC_ATOL
-            or np.abs(got.score - want.score).max(initial=0.0) > SCORE_ATOL):
-        raise AssertionError(f"{name}: scores differ")
+    d_acc = float(np.abs(got.score[acc] - want.score[acc]).max(initial=0.0))
+    d_all = float(np.abs(got.score - want.score).max(initial=0.0))
+    if d_acc > SCORE_ACC_ATOL * scale or d_all > SCORE_ATOL * scale:
+        raise AssertionError(f"{name}: scores differ by {d_acc} (accepted), {d_all} (all)")
 
 
 def chunk_args(frames_u8, state, config):
@@ -147,6 +184,132 @@ def time_ms(fn, repeats: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+K4_ATOL = 1e-4  # pvot/ops/ncc_pallas.py:650-654: the JAX probe's bound for a map
+K5_ATOL = 1e-5  # the fused argmax's value; (x, y) exactly
+
+
+def check_k4(dev, rng) -> float:
+    """K4 (ncc_map_lanes) against its plain version on random-uniform images:
+    720p / 80x80, 1080p / 160x160 and odd shapes, u8 and f32, and the batched
+    form over N = 8 frames equal to N single calls.  Returns the largest
+    absolute difference."""
+    from pvot_torch.ops.ncc_pallas import (
+        ncc_map_lanes_reference, ncc_map_pallas, ncc_map_pallas_batched,
+        ncc_map_pallas_reference,
+    )
+
+    err = 0.0
+    for (h, w), (th, tw), u8 in (((720, 1280), (80, 80), True), ((720, 1280), (80, 80), False),
+                                 ((1080, 1920), (160, 160), True), ((57, 133), (9, 11), False),
+                                 ((200, 140), (17, 13), True), ((300, 301), (80, 256), False)):
+        img = (torch.from_numpy(rng.integers(0, 256, (h, w), np.uint8)) if u8
+               else torch.from_numpy(rng.random((h, w), dtype=np.float32))).to(dev)
+        templ = torch.from_numpy(rng.random((th, tw), dtype=np.float32)).to(dev)
+        got = ncc_map_pallas(img, templ)
+        want = ncc_map_pallas_reference(img, templ)
+        d = float((got - want).abs().max())
+        print(f"K4 {h}x{w} / {th}x{tw} {'u8' if u8 else 'f32'}: map {tuple(got.shape)}, "
+              f"max |kernel - plain| {d:.3g} (<= {K4_ATOL})")
+        if not d <= K4_ATOL:
+            raise AssertionError("K4 and its plain version disagree")
+        err = max(err, d)
+    frames = torch.from_numpy(rng.integers(0, 256, (8, 720, 1280), np.uint8)).to(dev)
+    templ = frames[0, 300:380, 600:680].float() / 255.0
+    batched = ncc_map_pallas_batched(frames, templ)
+    for i in range(8):
+        if not torch.equal(batched[i], ncc_map_pallas(frames[i], templ)):
+            raise AssertionError(f"K4 batched frame {i} differs from its single call")
+    from pvot_torch.ops.ncc_reference import template_stats
+
+    t_mean, t_std = template_stats(templ)
+    d = float((batched - ncc_map_lanes_reference(frames, templ, t_mean, t_std)).abs().max())
+    print(f"K4 batched N=8 720p/80 u8: equal to 8 single calls; max |kernel - plain| {d:.3g}")
+    if not d <= K4_ATOL:
+        raise AssertionError("K4 batched and its plain version disagree")
+    return max(err, d)
+
+
+def check_k5(dev, clip, rng) -> float:
+    """K5 (region_argmax_lanes) against its plain version: the value within
+    1e-5 and (x, y) exactly, at 720p / 80x80 / span 121 on the bench clip's
+    frames (the target's template) and on random ones, with windows whole,
+    partly masked and fully masked, u8 and f32, lanes sharing one frame and
+    lanes each with their own; and forced ties (a constant region, whose
+    every position scores the same, must give the window's first
+    position).  Returns the largest value difference."""
+    from pvot_torch.ops.ncc_pallas import region_argmax_lanes, region_argmax_lanes_reference
+
+    spec, frames = clip
+    from pvot_torch.io.synthetic import target_bbox
+
+    x, y, w, h = target_bbox(spec, 0)
+    templ = torch.from_numpy(frames[0, y : y + h, x : x + w]).to(dev).float() / 255.0
+    from pvot_torch.ops.ncc_reference import template_stats
+
+    t_mean, t_std = template_stats(templ)
+    span = (121, 121)
+    lanes = [  # (x0, y0, rx0, rx1, ry0, ry1)
+        (x - 60, y - 60, 0, 120, 0, 120),       # whole window
+        (x - 50, y - 70, 5, 100, 11, 117),      # partly masked
+        (100, 200, 70, 120, 0, 40),             # partly masked, off the target
+        (30, 40, 10, 9, 0, 120),                # fully masked: (-inf, x0, y0)
+    ]
+    err = 0.0
+    for label, images in (
+        ("bench frames, own frame a lane, u8", torch.from_numpy(frames[1:5]).to(dev)),
+        ("bench frame shared by 4 lanes, u8", torch.from_numpy(frames[3]).to(dev)),
+        ("bench frame shared, f32", torch.from_numpy(frames[3]).to(dev).float() / 255.0),
+        ("random frames, f32", torch.from_numpy(rng.random((4, 720, 1280), dtype=np.float32)
+                                                ).to(dev)),
+    ):
+        got = region_argmax_lanes(images, templ, t_mean, t_std, lanes, span).cpu().numpy()
+        want = region_argmax_lanes_reference(images, templ, t_mean, t_std, lanes,
+                                             span).cpu().numpy()
+        if not (np.array_equal(got[:, 1:], want[:, 1:])
+                and np.array_equal(np.isfinite(got[:, 0]), np.isfinite(want[:, 0]))):
+            raise AssertionError(f"K5 {label}: kernel {got.tolist()} vs plain {want.tolist()}")
+        fin = np.isfinite(want[:, 0])
+        d = float(np.abs(got[fin, 0] - want[fin, 0]).max())
+        if not (d <= K5_ATOL and got[3].tolist() == [-np.inf, 30.0, 40.0]):
+            raise AssertionError(f"K5 {label}: value differs by {d} or the masked lane is "
+                                 f"{got[3].tolist()}")
+        print(f"K5 {label}: (x, y) equal on 4 lanes, max |value diff| {d:.3g} (<= {K5_ATOL}); "
+              f"fully masked lane {got[3].tolist()}")
+        err = max(err, d)
+    flat = torch.full((1, 300, 300), 0.5, device=dev)
+    tie = [(0, 0, 7, 60, 13, 50)]
+    got = region_argmax_lanes(flat, templ[:16, :16].contiguous(), *template_stats(
+        templ[:16, :16]), tie, (121, 121)).cpu().numpy()[0]
+    if got[1:].tolist() != [7.0, 13.0]:
+        raise AssertionError(f"K5 tie on a constant region went to {got[1:].tolist()}, not (7, 13)")
+    print(f"K5 forced tie (constant region): the window's first position (7, 13)")
+    return err
+
+
+def profiled(fn, kernel: str):
+    """fn() under torch.profiler: (device ms per launch of the CUDA kernels
+    whose name holds `kernel`, or 0.0 if the profiler saw none; {kernel name:
+    (launches, device ms)} of every CUDA kernel; wall ms, profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if str(e.device_type).endswith("CUDA") and us > 0:
+            by_kernel[e.key] = (e.count, us / 1e3)
+    hits = [v for k, v in by_kernel.items() if kernel in k]
+    n = sum(c for c, _ in hits)
+    return (sum(ms for _, ms in hits) / n if n else 0.0), by_kernel, wall
 
 
 def main() -> int:
@@ -176,9 +339,35 @@ def main() -> int:
         init_multi_state, init_multi_state_bucketed, stack_states, unstack_state,
     )
     from pvot_torch.tracker.mega import track_objects_mega, track_video_mega
-    from pvot_torch.tracker.state import init_state
+    from pvot_torch.tracker.state import StepOutput, init_state
 
-    kernels = (mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects)
+    from pvot_torch.cli.main import main as cli_main
+    from pvot_torch.io.pipeline import track_stream
+    from pvot_torch.ops import search as search_ops
+    from pvot_torch.ops.ncc_pallas import (
+        ncc_map_lanes, ncc_map_lanes_reference, ncc_map_pallas, ncc_region_argmax_pallas,
+        region_argmax_lanes, region_argmax_lanes_reference,
+    )
+    from pvot_torch.ops.ncc_reference import template_stats
+    from pvot_torch.parallel.multi import (
+        make_multi_stream_step, make_stream_masked_scan_fn, track_video_multi,
+    )
+    from pvot_torch.tracker.scan import track_video, track_video_batched
+    from pvot_torch.tracker.step import host_read, make_step
+
+    kernels = (mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects,
+               ncc_map_pallas, ncc_region_argmax_pallas)
+    names = ("K1", "K2", "K3", "K4", "K5")
+
+    def counts() -> dict:
+        return {n: k.launches for n, k in zip(names, kernels)}
+
+    def expect_counts(what: str, **want) -> None:
+        """Every kernel's launches since the last reset_counts(): those named,
+        the others none."""
+        got = counts()
+        if got != {n: want.get(n, 0) for n in names}:
+            raise AssertionError(f"{what}: launches {got}, expected {want} and no others")
 
     def reset_counts():
         for kernel in kernels:
@@ -225,7 +414,11 @@ def main() -> int:
           f"(nvcc {_build.build_info['seconds']:.1f} s)")
     for line in _build.build_info["log"].splitlines():
         entry = re.search(r"(score_kernel|commit_kernel)(?:I((?:Lb[01]E)+)E)?", line)
-        if "Compiling entry" in line and entry:  # score_kernel<kWhole, kOne, kExt> etc.
+        ncc = re.search(r"ncc_kernelI([hf])Lb([01])E", line)
+        if "Compiling entry" in line and ncc:  # ncc_kernel<pixel type, kArgmax>
+            print(f"  ptxas: ncc_kernel<{'u8' if ncc.group(1) == 'h' else 'f32'}, "
+                  f"{'K5' if ncc.group(2) == '1' else 'K4'}>")
+        elif "Compiling entry" in line and entry:  # score_kernel<kWhole, kOne, kExt> etc.
             flags = ",".join(re.findall(r"Lb([01])", entry.group(2) or ""))
             print(f"  ptxas: {entry.group(1)}" + (f"<{flags}>" if flags else ""))
         elif "registers" in line or "bytes stack" in line:
@@ -233,6 +426,8 @@ def main() -> int:
     for th, lanes in ((80, 1), (80, 8), (160, 1), (256, 1)):
         print(f"  score blocks per SM, {th}x{th} template, {lanes} lane(s): "
               f"{lib.pvot_mega_score_blocks_per_sm(th, th, lanes)}")
+    print("  K4/K5 template rows staged at once: "
+          + ", ".join(f"{t}x{t}: {lib.pvot_ncc_chunk_rows(t, t)}" for t in (80, 160, 256)))
     # The wrapper's envelope check mirrors the kernel's shared-memory plan.
     for th, tw, lanes in ((80, 80, 1), (80, 80, 8), (143, 143, 1), (143, 143, 256),
                           (160, 160, 1), (176, 176, 3), (256, 256, 1), (256, 256, 64)):
@@ -600,7 +795,259 @@ def main() -> int:
           f"ground truth and equal to track_video_mega alone; {serve_launches} K2 launches "
           f"on {smi}")
 
-    # Phase 8.
+    # Phase 8: K4 and K5 against their plain versions.
+    rng = np.random.default_rng(11)
+    arg_err = check_k5(dev, (spec, frames), rng)
+    map_err = check_k4(dev, rng)
+
+    def plain_step(frame_shape, templ_shape, cfg):
+        """The per-frame step on the plain versions of K4 and K5, on the card."""
+        span = (2 * cfg.search_radius_y + 1, 2 * cfg.search_radius_x + 1)
+
+        def full_fn(frame, templ, t_mean, t_std):
+            return ncc_map_lanes_reference(frame, templ, t_mean, t_std)[0]
+
+        def region_fn(frame, templ, t_mean, t_std, x0, y0):
+            return ncc_map_lanes_reference(frame, templ, t_mean, t_std, [(x0, y0)], span)[0]
+
+        def argmax_fn(frame, templ, t_mean, t_std, x0, y0, b):
+            lane = (x0, y0, b.min_tx - x0, b.max_tx - x0, b.min_ty - y0, b.max_ty - y0)
+            return region_argmax_lanes_reference(frame, templ, t_mean, t_std, [lane], span)[0]
+
+        return make_step(frame_shape, templ_shape, cfg, ncc_full_fn=full_fn,
+                         ncc_region_fn=region_fn,
+                         ncc_region_argmax_fn=argmax_fn if max(span) <= 128 else None)
+
+    def plain_video(clip_frames, start, cfg):
+        """track_video on the plain engine, on the card."""
+        return track_video(clip_frames, start, cfg, step=plain_step(
+            clip_frames.shape[1:], tuple(start.template.shape), cfg))[1]
+
+    # Phase 9: this slice's main path, track_stream(backend="shared") over the
+    # bench clip, beside track_video_mega on the same frames.
+    n_main = 2048
+    staged = torch.from_numpy(frames[1 : n_main + 1]).to(dev)
+    reads0 = host_read.count
+    t0 = time.perf_counter()
+    _, mega_out = track_video_mega(staged, state, config, chunk_size=512)
+    mega_s = time.perf_counter() - t0
+    mega_reads = (host_read.count - reads0) / n_main
+    reset_counts()
+    reads0 = host_read.count
+    t0 = time.perf_counter()
+    _, stream_out = track_stream(iter(frames[1 : n_main + 1]), state, frames.shape[1:], config,
+                                 backend="shared", chunk_size=32)
+    stream_s = time.perf_counter() - t0
+    stream_reads = (host_read.count - reads0) / n_main
+    expect_counts("track_stream(shared)", K5=n_main)
+    arg_launches = ncc_region_argmax_pallas.launches
+    if max_l1_err_px(spec, stream_out.bbox) != 0:
+        raise AssertionError("track_stream(shared) is off the ground truth")
+    compare_outputs("track_stream(shared) vs track_video_mega", stream_out, mega_out)
+    t0 = time.perf_counter()
+    _, dev_out = track_video(staged, state, config, backend="shared")
+    engine_s = time.perf_counter() - t0
+    compare_outputs("track_video(shared), frames on the card", dev_out, stream_out)
+    print(f"main path of the engines: track_stream(shared) over {n_main} frames of the bench "
+          f"clip in {stream_s:.3f} s: {n_main / stream_s:.1f} frames/s, "
+          f"{stream_reads:.4f} host reads a frame, 0 px, equal to track_video_mega, "
+          f"{arg_launches} K5 launches and no other; track_video(shared) with the frames on "
+          f"the card {n_main / engine_s:.1f} frames/s; track_video_mega "
+          f"{n_main / mega_s:.1f} frames/s (one call, host clock), {mega_reads:.6f} host reads "
+          f"a frame; on {smi}")
+
+    # Phase 10: the same path through the pvot-torch CLI, over its synthetic
+    # clip of the bench geometry (SyntheticSpec(1280, 720, 2049), seed 0).
+    cspec = SyntheticSpec(width=1280, height=720, num_frames=n_main + 1)
+    cx, cy, cw, ch = target_bbox(cspec, 0)
+    traj = "build/chip_smoke_cli_trajectory.jsonl"
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["--synthetic", f"1280x720x{n_main + 1}", "--max-frames", str(n_main),
+                   "--first", "--roi", f"{cx},{cy},{cw},{ch}", "--shared", "--device", "cuda",
+                   "--no-display", "--trajectory-out", traj])
+    cli_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"pvot-torch --shared exited {rc}")
+    expect_counts("pvot-torch --shared", K5=n_main)
+    with open(traj) as f:
+        recs = [json.loads(line) for line in f]
+    cli_out = StepOutput(np.array([r["bbox"] for r in recs], np.int32),
+                         np.array([r["score"] for r in recs], np.float32),
+                         np.array([r["used_global"] for r in recs]),
+                         np.array([r["updated"] for r in recs]))
+    if len(recs) != n_main or max_l1_err_px(cspec, cli_out.bbox) != 0:
+        raise AssertionError("pvot-torch --shared is off the ground truth")
+    cframes = generate_gray_video(cspec)
+    _, cli_mega = track_video_mega(cframes[1:], state_at(cspec, cframes, 0, dev), config,
+                                   chunk_size=512)
+    compare_outputs("pvot-torch --shared vs track_video_mega", cli_out, cli_mega)
+    print(f"pvot-torch --shared: {n_main} frames in {cli_s:.3f} s (synthesis of the clip "
+          f"included), 0 px, equal to track_video_mega, {n_main} K5 launches and no other")
+
+    # Phase 11: re-acquisition at 720p (phase 3's clip, lost threshold 5):
+    # one K4 launch per global frame, one K5 launch per local one.
+    reset_counts()
+    _, g_out = track_video(gframes[1:], gstate, gconfig, backend="shared")
+    n_glob = int(g_out.used_global.sum())
+    expect_counts("re-acquisition", K4=n_glob, K5=len(g_out.bbox) - n_glob)
+    map_launches = n_glob
+    if not n_glob:
+        raise AssertionError("the re-acquisition clip ran no global frame")
+    compare_outputs("re-acquisition 720p: CUDA engine vs plain engine", g_out,
+                    plain_video(gframes[1:], gstate, gconfig))
+    print(f"re-acquisition 720p/80/r60: {n_glob} global frames of {len(g_out.bbox)}, K4 "
+          f"launched once per global frame, K5 once per local one; equal to the plain engine")
+
+    # Phase 12: 1080p / 160x160 / r160: the span (321) takes the K4 region
+    # path; with global frames (a state set in global search).
+    b_clip = bframes[1:]
+    reset_counts()
+    _, b_out = track_video(b_clip, bstate, bconfig, backend="shared")
+    expect_counts("1080p/160/r160", K4=len(b_out.bbox))
+    compare_outputs("1080p/160/r160: CUDA engine vs plain engine", b_out,
+                    plain_video(b_clip, bstate, bconfig), 160 * 160)
+    bheld = bstate._replace(use_global=torch.tensor(True, device=dev))
+    _, bh_out = track_video(b_clip[:2], bheld, bconfig, backend="shared")
+    if not bh_out.used_global[0]:
+        raise AssertionError("1080p/160: the held state ran no global frame")
+    compare_outputs("1080p/160 global frames: CUDA engine vs plain engine", bh_out,
+                    plain_video(b_clip[:2], bheld, bconfig), 160 * 160)
+    # A local frame's search both ways: K4 over the region + the argmax by
+    # torch ops (the gated path), and K5 forced over the whole 321 x 321 span.
+    bframe = torch.from_numpy(bframes[0]).to(dev)
+    b_tm, b_ts = bstate.t_mean, bstate.t_std
+    bx, by = int(bstate.bbox_x), int(bstate.bbox_y)
+    bb = search_ops.local_window_bounds(bx + 80, by + 80, 160, 160, 1920 - 159, 1080 - 159,
+                                        160, 160)
+    bx0, by0 = search_ops.region_origin(bb, 1920 - 159, 1080 - 159, 321, 321)
+    blane = (bx0, by0, bb.min_tx - bx0, bb.max_tx - bx0, bb.min_ty - by0, bb.max_ty - by0)
+    gated = search_ops.masked_region_best(ncc_map_lanes(
+        bframe, bstate.template, b_tm, b_ts, [(bx0, by0)], (321, 321))[0], bx0, by0, bb)
+    forced = region_argmax_lanes(bframe, bstate.template, b_tm, b_ts, [blane], (321, 321))[0]
+    if gated[1:].tolist() != forced[1:].tolist():
+        raise AssertionError(f"1080p/160: K5 forced over the span {forced.tolist()} vs "
+                             f"K4 + argmax {gated.tolist()}")
+    b_gated_ms = time_ms(lambda: search_ops.masked_region_best(ncc_map_lanes(
+        bframe, bstate.template, b_tm, b_ts, [(bx0, by0)], (321, 321))[0], bx0, by0, bb), 10)
+    b_forced_ms = time_ms(lambda: region_argmax_lanes(bframe, bstate.template, b_tm, b_ts,
+                                                      [blane], (321, 321)), 10)
+    print(f"1080p/160/r160: {len(b_out.bbox)} frames ({int(b_out.used_global.sum())} global) "
+          f"and 2 from a state set global, each one K4 launch, equal to the plain engine; a "
+          f"local frame's "
+          f"search: K4 region + torch argmax {b_gated_ms:.4f} ms, K5 forced over the span "
+          f"{b_forced_ms:.4f} ms (same winner)")
+
+    # Phase 13: several lanes.  (a) K = 4 objects on phase 5's clip (one from
+    # outside the frame): one K5 launch per frame step for all four;
+    # (b) 4 streams in one masked chunk (phase 4's streams, one ended, one
+    # partial); (c) a bucketed set, all local, on the bucketed torch-ops
+    # engine.  Each lane held against the plain engine on that lane alone.
+    uni = [g0[y : y + 80, x : x + 80] for x, y in cut_at]
+    urois = [(x, y, 80, 80) for x, y in start_at]
+    reset_counts()
+    _, m_out = track_video_multi(oclip[1:], init_multi_state(uni, urois), config,
+                                 backend="shared")
+    n_mglob = int(m_out.used_global.any(axis=1).sum())
+    expect_counts("track_video_multi K=4", K5=of, K4=n_mglob)
+    if not m_out.used_global[:, 3].any():
+        raise AssertionError("K=4: the object from outside ran no global frame")
+    for k in range(4):
+        compare_outputs(f"K=4 object {k}", StepOutput(*(v[:, k] for v in m_out)),
+                        plain_video(oclip[1:], init_state(uni[k], urois[k]), config))
+    sstates = stack_states([state, gstate, state_at(spec, frames, 399, dev),
+                            state_at(spec, frames, 799, dev)])
+    nv = [f4, f4, 0, 20]
+    valid = np.stack([np.arange(f4) < n for n in nv], axis=1)
+    scan = make_stream_masked_scan_fn(make_multi_stream_step((720, 1280), (80, 80), gconfig,
+                                                             backend="shared"))
+    reset_counts()
+    _, s_out = scan(sstates, fr4.permute(1, 0, 2, 3), valid)
+    if ncc_region_argmax_pallas.launches != f4:
+        raise AssertionError(f"4 streams: K5 launched {ncc_region_argmax_pallas.launches} "
+                             f"times for {f4} frame steps")
+    for s_, n in enumerate(nv):
+        if n:
+            compare_outputs(f"stream {s_}", StepOutput(*(v[:n, s_] for v in s_out)),
+                            plain_video(fr4[s_, :n], unstack_state(sstates, s_), gconfig))
+    bext = [(80, 80), (64, 48), (48, 64), (32, 32)]
+    btempl = [g0[y : y + eh, x : x + ew] for (x, y), (eh, ew) in zip(cut_at, bext)]
+    brois = [(x, y, ew, eh) for (x, y), (eh, ew) in zip(cut_at, bext)]
+    _, bk_out = track_video_multi(oclip[1:], init_multi_state_bucketed(btempl, brois), config)
+    for k in range(4):
+        compare_outputs(f"bucketed object {k} {bext[k]}", StepOutput(*(v[:, k] for v in bk_out)),
+                        plain_video(oclip[1:], init_state(btempl[k], brois[k]), config))
+    print(f"lanes: K=4 objects ({n_mglob} global steps) one K5 launch a step, 4 streams "
+          f"(one ended, one partial) one K5 launch a step, bucketed {bext}; every lane "
+          f"equal to the plain engine on it alone")
+
+    # Phase 14: batch mode at n = 4 over 203 frames (3 left over).
+    reset_counts()
+    _, bt_out = track_video_batched(frames[1:204], state, config, batch_size=4,
+                                    backend="shared")
+    expect_counts("batch mode", K5=50)
+    last = plain_video(frames[4:201:4], state, config)
+    compare_outputs("batch mode, batch-final frames", StepOutput(*(v[3:200:4] for v in bt_out)),
+                    last)
+    held = [i for i in range(203) if i % 4 != 3 or i >= 200]
+    if (bt_out.updated[held].any() or not (bt_out.score[held] == -1.0).all()
+            or not (bt_out.bbox[200:] == bt_out.bbox[199]).all()):
+        raise AssertionError("batch mode: a held frame updated, or the tail moved")
+    print("batch mode n=4, 203 frames: 50 K5 launches, batch-final frames equal to the plain "
+          "engine, the 150 held frames and the 3-frame tail re-emit the bbox")
+
+    # Phase 15: TF32.  The xla engine on the card with PyTorch's default
+    # TF32 flags (cuDNN on, cuBLAS off) still scores in full float32.
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, x_out = track_video(frames[1:65], state, config, backend="xla")
+    torch.backends.cudnn.allow_tf32 = False
+    compare_outputs("xla engine, TF32 flags at their defaults, vs plain engine", x_out,
+                    plain_video(frames[1:65], state, config))
+    print("xla engine with the default TF32 flags: 64 frames equal to the plain engine")
+
+    # Kernel times at the main path's shapes: device time per launch from
+    # torch.profiler (CUDA events around the calls time the wrappers' host
+    # work when it is the longer), and the engine path's device time by kernel.
+    gframe = torch.from_numpy(frames[1]).to(dev)
+    templ0, (tm0, ts0) = state.template, (state.t_mean, state.t_std)
+    x0m, y0m = int(state.bbox_x) - 60, int(state.bbox_y) - 60
+    lane5 = [(x0m, y0m, 0, 120, 0, 120)]
+    map_call_ms = time_ms(lambda: ncc_map_lanes(gframe, templ0, tm0, ts0), 20)
+    map_ms = profiled(lambda: [ncc_map_lanes(gframe, templ0, tm0, ts0) for _ in range(20)],
+                      "ncc_kernel")[0] or map_call_ms
+    map_plain_ms = time_ms(lambda: ncc_map_lanes_reference(gframe, templ0, tm0, ts0), 1)
+    map_conv = time_ms(lambda: torch.nn.functional.conv2d(
+        gframe.float()[None, None] / 255.0, templ0[None, None]), 5)
+    map_bound, map_by = bound_ms(641 * 1201 * 6400, 720 * 1280 + 4 * (6400 + 641 * 1201))
+    arg_call_ms = time_ms(lambda: region_argmax_lanes(gframe, templ0, tm0, ts0, lane5,
+                                                      (121, 121)), 50)
+    arg_ms = profiled(lambda: [region_argmax_lanes(gframe, templ0, tm0, ts0, lane5, (121, 121))
+                               for _ in range(50)], "ncc_kernel")[0] or arg_call_ms
+    arg_plain_ms = time_ms(lambda: region_argmax_lanes_reference(gframe, templ0, tm0, ts0,
+                                                                 lane5, (121, 121)), 3)
+    start_box = [int(v) for v in torch.stack(list(state.bbox)).tolist()]
+    arg_fma = 6400 * scored_positions(start_box, stream_out.bbox, stream_out.used_global,
+                                      frames.shape[1:], (80, 80), config)
+    arg_bound, arg_by = bound_ms(arg_fma / n_main, 200 * 200 + 4 * 6400 + 12)
+    arg_conv = conv2d_corr_ms(windows_of(staged[:64], start_box, mega_out.bbox[:64], 80, 80, 60),
+                              templ0[None])
+    print(f"K4 global frame 720p/80: kernel {map_ms:.4f} ms (a call {map_call_ms:.4f}), plain "
+          f"{map_plain_ms:.4f}, bound {map_bound:.4f} ({map_by}), F.conv2d correlation alone "
+          f"{map_conv:.4f}; K5 local frame 720p/80/r60: kernel {arg_ms:.5f} ms (a call "
+          f"{arg_call_ms:.5f}), plain {arg_plain_ms:.5f}, bound {arg_bound:.5f} ({arg_by}), "
+          f"F.conv2d correlation alone {arg_conv:.5f}")
+    n_prof = 512
+    _, by_kernel, prof_wall = profiled(lambda: track_video(staged[:n_prof], state, config,
+                                                           backend="shared"), "ncc_kernel")
+    busy = sum(ms for _, ms in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"engine path under the profiler, {n_prof} frames: wall {prof_wall:.2f} ms "
+          f"({prof_wall / n_prof:.4f} a frame, profiler on), device busy {busy:.2f} ms "
+          f"({100 * busy / prof_wall:.1f} %); by kernel (launches, ms): "
+          + "; ".join(f"{name[:60]}: {n}, {ms:.3f}" for name, (n, ms) in top))
+
+    # Phase 16.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -665,6 +1112,47 @@ def main() -> int:
             "k8_one_global_ms_per_step": k3_g8_ms,
             "serve_objects_fps": n_serve / serve_o_s,
             "device_path_fps": dev_fps,
+        },
+        {
+            "name": "ncc_map_pallas",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/ncc_pallas.cu",
+            "replaces": "pvot/ops/ncc_pallas.py:406",
+            "launches": map_launches,
+            "launches_path": "re-acquisition clip, 720p/80/r60 (the bench clip has no global "
+                             "frame: 0 launches there)",
+            "max_abs_err": map_err,
+            "ms": map_ms,
+            "call_ms": map_call_ms,
+            "plain_ms": map_plain_ms,
+            "bound_ms": map_bound,
+            "bound_by": map_by,
+            "library_ms": None,
+            "conv2d_corr_ms": map_conv,
+            "ms_unit": "per global frame (641x1201 map), 720p/80",
+            "region_1080p_160_r160_ms": b_gated_ms,
+        },
+        {
+            "name": "ncc_region_argmax_pallas",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/ncc_pallas.cu",
+            "replaces": "pvot/ops/ncc_pallas.py:531",
+            "launches": arg_launches,
+            "max_abs_err": arg_err,
+            "ms": arg_ms,
+            "call_ms": arg_call_ms,
+            "plain_ms": arg_plain_ms,
+            "bound_ms": arg_bound,
+            "bound_by": arg_by,
+            "library_ms": None,
+            "conv2d_corr_ms": arg_conv,
+            "ms_unit": "per local frame (121x121 region), 720p/80/r60",
+            "forced_1080p_160_r160_span321_ms": b_forced_ms,
+            "main_path_fps": n_main / stream_s,
+            "main_path_host_reads_per_frame": stream_reads,
+            "device_frames_fps": n_main / engine_s,
+            "mega_fps_same_clip": n_main / mega_s,
+            "mega_host_reads_per_frame": mega_reads,
         },
     ]}))
     print(smi)

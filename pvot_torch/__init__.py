@@ -23,6 +23,9 @@ __all__ = [
     "serve_streams",
     "serve_streams_grouped",
     "serve_objects",
+    "track_video_multi",
+    "track_stream",
+    "NccTracker",
 ]
 
 
@@ -47,4 +50,16 @@ def __getattr__(name):  # lazy heavyweight entry points
         from pvot_torch.io.serving import serve_objects
 
         return serve_objects
+    if name == "track_video_multi":
+        from pvot_torch.parallel.multi import track_video_multi
+
+        return track_video_multi
+    if name == "track_stream":
+        from pvot_torch.io.pipeline import track_stream
+
+        return track_stream
+    if name == "NccTracker":
+        from pvot_torch.models.ncc import NccTracker
+
+        return NccTracker
     raise AttributeError(f"module 'pvot_torch' has no attribute {name!r}")

@@ -7,9 +7,11 @@ max_l1_err_px == 0 against the ground-truth bbox.  The port runs the f32
 tier (bench.py's `mega_highest=True` analog).
 
 Run with `python -m pvot_torch.bench`; it prints one JSON line, then one for
-`--streams S` (S streams cut from the clip) and one for `--objects K` (K
-trackers over the clip, benchmarks/suite.py:813 `bench_multi_object_mega`).
-It needs a CUDA device and fails without one.
+`--streams S` (S streams cut from the clip), one for `--objects K` (K
+trackers over the clip, benchmarks/suite.py:813 `bench_multi_object_mega`)
+and one for `--backend NAME` (the per-frame engine path, track_video with
+that backend of pvot_torch.ops.backends).  It needs a CUDA device and fails
+without one.
 
 Protocol: the frames are staged on the card first (set-up, untimed).  The
 checked run tracks the clip once with every launch counter at 0 and checks
@@ -359,6 +361,66 @@ def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 
     }
 
 
+def run_bench_engine(backend: str, num_frames: int = 2048, passes: int = 3,
+                     clip=None) -> dict:
+    """The per-frame engine path over the bench clip: track_video(backend=)
+    with the frames staged on the card, checked once with the launch and
+    host-read counters at 0, then `passes` runs timed with CUDA events
+    (median).  Every frame ends in the step's read of its argmax, so an
+    event-timed run covers all of its work."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("pvot_torch.bench needs a CUDA device")
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.ops.ncc_pallas import ncc_map_pallas, ncc_region_argmax_pallas
+    from pvot_torch.tracker.scan import track_video
+    from pvot_torch.tracker.step import host_read
+
+    dev = torch.device("cuda", 0)
+    spec, frames = clip if clip is not None else bench_clip(num_frames)
+    config = TrackerConfig()
+    state = state_at(spec, frames, 0, dev)
+    staged = torch.from_numpy(frames[1 : 1 + num_frames]).to(dev)
+    torch.cuda.synchronize()
+
+    ncc_map_pallas.launches = ncc_region_argmax_pallas.launches = 0
+    reads0 = host_read.count
+    _, out = track_video(staged, state, config, backend=backend)
+    reads = host_read.count - reads0
+    k4, k5 = ncc_map_pallas.launches, ncc_region_argmax_pallas.launches
+    times_ms = []
+    for _ in range(passes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, again = track_video(staged, state, config, backend=backend)
+        end.record()
+        end.synchronize()
+        times_ms.append(start.elapsed_time(end))
+        if not np.array_equal(again.bbox, out.bbox):
+            raise RuntimeError("a timed run's trajectory differs from the checked run's")
+    med = statistics.median(times_ms)
+    gpu, watts = gpu_identity()
+    return {
+        "metric": f"tracked_fps_720p_80px_engine_{backend}",
+        "value": num_frames / (med / 1000.0),
+        "unit": "frames/s",
+        "ms_per_frame": med / num_frames,
+        "run_ms_median": med,
+        "run_ms_all": times_ms,
+        "frames_per_run": num_frames,
+        "backend": backend,
+        "max_l1_err_px": max_l1_err_px(spec, out.bbox),
+        "global_frames": int(out.used_global.sum()),
+        "k4_launches_per_frame": k4 / num_frames,
+        "k5_launches_per_frame": k5 / num_frames,
+        "host_reads_per_frame": reads / num_frames,
+        "tier": "f32",
+        "gpu": torch.cuda.get_device_name(0),
+        "gpu_smi": gpu,
+        "power_limit_w": watts,
+    }
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -367,6 +429,8 @@ def main(argv=None) -> None:
                    help="also track S streams together and print their aggregate line")
     p.add_argument("--objects", type=int, default=0, metavar="K",
                    help="also track K objects over the clip and print their line")
+    p.add_argument("--backend", default=None, metavar="NAME",
+                   help="also track the clip on this per-frame engine and print its line")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
     clip = bench_clip()
@@ -389,6 +453,13 @@ def main(argv=None) -> None:
         print(json.dumps(objects))
         if objects["max_l1_err_px"] != 0:
             raise SystemExit("a tracked object is off the ground truth")
+    if args.backend:
+        t0 = time.perf_counter()
+        engine = run_bench_engine(args.backend, clip=clip)
+        engine["wall_s"] = time.perf_counter() - t0
+        print(json.dumps(engine))
+        if engine["max_l1_err_px"] != 0:
+            raise SystemExit("the engine path is off the ground truth")
 
 
 if __name__ == "__main__":

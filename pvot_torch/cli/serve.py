@@ -15,7 +15,7 @@ over one stream resumes it.
 
 What the JAX front end has and the port not yet exits with code 2 and names
 its ROADMAP item: --fast and --score-passes (A6), --devices (A12),
---scan-backend (A10).  Video files need OpenCV, which the card's machine does
+--scan-backend (A15).  Video files need OpenCV, which the card's machine does
 not have: there, serve --synthetic streams.
 
 Examples:
@@ -40,7 +40,7 @@ _NOT_PORTED = {
     "--fast": "the fast score tiers (ROADMAP A6)",
     "--score-passes": "the fast score tiers (ROADMAP A6)",
     "--devices": "serving across cards (ROADMAP A12)",
-    "--scan-backend": "the scan engines (ROADMAP A10)",
+    "--scan-backend": "serving over the scan engines (ROADMAP A15)",
 }
 
 

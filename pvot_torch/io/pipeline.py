@@ -8,8 +8,13 @@ the device while the card tracks the previous chunk.  The tail chunk is
 padded with the final frame and carries its count of real frames.
 `fill` is the port's addition: it pops the next chunk straight into a
 buffer the caller owns (the serving loop's pinned staging), where `chunks`
-allocates and concatenates arrays for every chunk.  `track_stream` is not
-ported yet (ROADMAP A11).
+allocates and concatenates arrays for every chunk.
+
+`track_stream` and `track_stream_batched` (pvot/io/pipeline.py:150, :345)
+track a stream through the pipeline on the per-frame engines, or, for
+backend="mega" with the fused strategy, on the chunk kernel a chunk at a
+time (`track_video_mega`; global frames run in the kernel, so nothing rolls
+back: ROADMAP R1).
 """
 
 from __future__ import annotations
@@ -175,3 +180,123 @@ class FramePipeline:
         if self._ring is not None:
             self._ring.close()
             self._ring = None
+
+
+def _stream_device(state, device):
+    import torch
+
+    return torch.device(device) if device is not None else state.template.device
+
+
+def track_stream(
+    frame_iter: Iterable[np.ndarray],
+    state,
+    frame_shape: Tuple[int, int],
+    config=None,
+    strategy: str = "fused",
+    backend: str = "xla",
+    chunk_size: int = 32,
+    timings: Optional[list] = None,
+    device=None,
+):
+    """Track a frame stream end to end, decode and gray conversion overlapped
+    with tracking; returns (final state, StepOutput) like track_video.
+
+    frame_iter yields uint8 BGR (H, W, 3) or gray (H, W) frames.  The stream
+    runs on `device` (default: the state's device).  timings, when given a
+    list, receives one (frames, seconds) pair per chunk in output order."""
+    import torch
+
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.tracker.scan import concat_outputs, records_to_output
+    from pvot_torch.tracker.step import cached_step, carry_from_state, state_from_carry
+
+    config = config or TrackerConfig()
+    device = _stream_device(state, device)
+    h, w = frame_shape
+    mega = backend == "mega" and strategy == "fused"
+    if not mega:
+        c = carry_from_state(state.to(device))
+        step = cached_step((h, w), tuple(c.template.shape), config, strategy, backend)
+    pipe = FramePipeline(frame_iter, frame_shape, chunk_size=chunk_size)
+    outs = []
+    mark = time.perf_counter()
+    try:
+        for chunk, n_real in pipe.chunks():
+            dev_chunk = torch.from_numpy(chunk[:n_real]).to(device)
+            if mega:
+                from pvot_torch.tracker.mega import track_video_mega
+
+                state, out = track_video_mega(dev_chunk, state, config, chunk_size=n_real,
+                                              device=device)
+            else:
+                recs = []
+                for frame in dev_chunk:
+                    c, rec = step(c, frame)
+                    recs.append(rec)
+                out = records_to_output(recs)
+            outs.append(out)
+            now = time.perf_counter()
+            if timings is not None:
+                timings.append((n_real, now - mark))
+            mark = now
+    finally:
+        pipe.close()
+    return (state if mega else state_from_carry(c)), concat_outputs(outs)
+
+
+def track_stream_batched(
+    frame_iter: Iterable[np.ndarray],
+    state,
+    frame_shape: Tuple[int, int],
+    config=None,
+    batch_size: Optional[int] = None,
+    strategy: str = "fused",
+    backend: str = "xla",
+    chunks_per_dispatch: int = 8,
+    timings: Optional[list] = None,
+    device=None,
+):
+    """Reference-parity batch mode (--batch=N) over a frame stream, the
+    semantics of track_video_batched (C10).  backend="mega" runs the CUDA
+    engine: the in-kernel batch cadence is not ported (ROADMAP A7)."""
+    import torch
+
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.tracker.scan import (
+        concat_outputs, leftover_tail, make_batched_step, records_to_output,
+    )
+    from pvot_torch.tracker.step import carry_from_state, state_from_carry
+
+    config = config or TrackerConfig()
+    n = batch_size or config.batch_size
+    device = _stream_device(state, device)
+    h, w = frame_shape
+    c = carry_from_state(state.to(device))
+    batch_step = make_batched_step((h, w), tuple(c.template.shape), config, n, strategy,
+                                   backend)
+    pipe = FramePipeline(frame_iter, frame_shape, chunk_size=n * max(1, chunks_per_dispatch))
+    outs = []
+    leftover = 0
+    mark = time.perf_counter()
+    try:
+        for chunk, n_real in pipe.chunks():
+            k_full = n_real // n
+            leftover = n_real - k_full * n
+            if not k_full:
+                continue
+            dev_chunk = torch.from_numpy(chunk[: k_full * n]).to(device)
+            recs = []
+            for batch in dev_chunk.reshape(k_full, n, h, w):
+                c, batch_recs = batch_step(c, batch)
+                recs.extend(batch_recs)
+            outs.append(records_to_output(recs))
+            now = time.perf_counter()
+            if timings is not None:
+                timings.append((k_full * n, now - mark))
+            mark = now
+    finally:
+        pipe.close()
+    if leftover:
+        outs.append(leftover_tail(c, leftover))
+    return state_from_carry(c), concat_outputs(outs)

@@ -83,8 +83,8 @@ def _check_options(backend: str, highest: bool, devices) -> None:
     raise, naming their ROADMAP item; none is ignored."""
     if backend != "mega":
         raise NotImplementedError(
-            f"backend={backend!r}: the port serves on the mega kernel only; the "
-            "scan engines are not ported yet (ROADMAP A10)"
+            f"backend={backend!r}: the port serves on the mega kernel only; serving "
+            "over the scan engines is not ported yet (ROADMAP A15)"
         )
     if not highest:
         raise NotImplementedError(
@@ -132,7 +132,7 @@ def serve_streams(
     before the oldest one's records are read (1 = synchronous).
 
     The port has the mega backend at its f32 tier on one card: another
-    backend, highest=False or several devices raise (ROADMAP A10, A6, A12)."""
+    backend, highest=False or several devices raise (ROADMAP A15, A6, A12)."""
     _check_options(backend, highest, devices)
     config = config or TrackerConfig()
     n = num_streams(states)

@@ -1,7 +1,9 @@
-"""Host-side video decode: a copy of pvot/io/video.py `VideoReader`.
+"""Host-side video decode and encode: copies of pvot/io/video.py
+`VideoReader` and `VideoWriter`.
 
-OpenCV is imported when a reader opens, not when this module is imported:
-the card's machine has no OpenCV, so it serves synthetic streams only.
+OpenCV is imported when a reader or writer opens, not when this module is
+imported: the card's machine has no OpenCV, so it serves synthetic streams
+only.
 """
 
 from __future__ import annotations
@@ -60,6 +62,40 @@ class VideoReader:
 
     def close(self) -> None:
         self._cap.release()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class VideoWriter:
+    """Annotated-video writer with the reference's avc1 -> MJPG fallback
+    (tracker_ghc/src/main.cpp:330-339)."""
+
+    def __init__(self, path: str, fps: float, size: Tuple[int, int]):
+        try:
+            import cv2  # type: ignore
+        except ImportError as e:
+            raise RuntimeError("OpenCV is required for video encode") from e
+        w, h = size
+        self.path = path
+        self._writer = None
+        for fourcc_str in ("avc1", "MJPG", "mp4v"):
+            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc_str), fps, (w, h))
+            if writer.isOpened():
+                self._writer = writer
+                self.fourcc = fourcc_str
+                break
+        if self._writer is None:
+            raise IOError(f"Failed to open output video for writing: {path}")
+
+    def write(self, frame_bgr: np.ndarray) -> None:
+        self._writer.write(frame_bgr)
+
+    def close(self) -> None:
+        self._writer.release()
 
     def __enter__(self):
         return self

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources at first use and bind them with ctypes.
 
-`nvcc` compiles every pvot_torch/csrc/*.cu into one shared library with a
-plain C interface, for sm_90a, under build/pvot_torch/ at the root of the
-checkout (listed in .gitignore).  The file name carries a hash of the
+`nvcc` compiles every pvot_torch/csrc/*.cu for sm_90a, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface under build/pvot_torch/ at the root of the checkout
+(listed in .gitignore).  The file name carries a hash of the
 sources and flags, so an edited source builds anew and an unchanged one
 loads the existing library.  Nothing builds when a module is imported; the
 first call of `load_library()` does.
@@ -24,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pvot_torch"
 # to their plain versions on near-ties.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -47,6 +48,19 @@ SIGNATURES = {
     ),
     "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
     "pvot_mega_score_blocks_per_sm": ([_I, _I, _I], ctypes.c_int),
+    # img, img_u8, img_h, img_w, row_stride, lane_stride, lanes, n_lanes, out_h,
+    # out_w, tpl, tpl_stride, th, tw, t_mean, t_std, stat_stride, out
+    "pvot_ncc_map": (
+        [_P, _I, _I, _I, _L, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _P, _I, _P, _P],
+        ctypes.c_int,
+    ),
+    # ... as pvot_ncc_map, then part_val, part_yx, done, stream
+    "pvot_ncc_region_argmax": (
+        [_P, _I, _I, _I, _L, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+         _P],
+        ctypes.c_int,
+    ),
+    "pvot_ncc_chunk_rows": ([_I, _I], ctypes.c_int),
     "pvot_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -75,22 +89,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists."""
+    """Compile the sources unless the library for their hash exists: one
+    nvcc per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         build_info.update(seconds=0.0, path=str(out), log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = None
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}"
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(failed)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
     out.with_suffix(".log").write_text(log)
     build_info.update(seconds=seconds, path=str(out), log=log)
     return out

@@ -28,7 +28,7 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.gray import ensure_gray_f32
 from pvot_torch.ops import search as search_ops
-from pvot_torch.ops.ncc_reference import corr2_valid
+from pvot_torch.ops.ncc_reference import ncc_scores
 from pvot_torch.tracker.state import is_bbox_outside_frame
 from pvot_torch.tracker.step import f32
 
@@ -108,9 +108,8 @@ class MegaGeometry:
             raise ValueError(
                 f"template {self.th}x{self.tw} with spans {self.span_y}x{self.span_x} "
                 f"is outside the mega kernel's envelope (templates up to "
-                f"{MAX_TEMPLATE}x{MAX_TEMPLATE}, spans up to {MAX_SPAN}); the JAX "
-                "package serves it on its scan engines, which the port has not "
-                "yet (ROADMAP A4/A10)"
+                f"{MAX_TEMPLATE}x{MAX_TEMPLATE}, spans up to {MAX_SPAN}); track it on "
+                "the scan engines, track_video(backend=\"shared\") (ROADMAP A4/A10)"
             )
         if self.stage_rows(table_lanes) < 1:
             raise ValueError(
@@ -138,17 +137,6 @@ def _frame_mode(g: MegaGeometry, config: TrackerConfig, bbox, lost: int,
     return use_global, False, (b.min_ty, b.max_ty, b.min_tx, b.max_tx)
 
 
-def _chunk_scores(region: torch.Tensor, tc: torch.Tensor, t_std, sum_tc, n: float):
-    """The kernel's score formula over a float32 region (pvot/ops/ncc_mega.py
-    :462-470), sums by valid-mode correlation."""
-    ones = torch.ones_like(tc)
-    mean = corr2_valid(region, ones) / n
-    var = corr2_valid(region * region, ones) / n - mean * mean
-    std = torch.sqrt(torch.clamp(var, min=1e-6))
-    cov = corr2_valid(region, tc) - mean * sum_tc
-    return cov / ((std + 1e-6) * (t_std + 1e-6) * n)
-
-
 def mega_track_chunk_reference(
     frames_u8: torch.Tensor,
     bbox: torch.Tensor,
@@ -162,9 +150,7 @@ def mega_track_chunk_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the chunk kernel: a per-frame loop of torch
     ops with the kernel's inputs, outputs and arithmetic (the order of each
-    sum aside).  On the card it needs TF32 off: its sums run through cuDNN."""
-    if frames_u8.is_cuda and torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("set torch.backends.cudnn.allow_tf32 = False first")
+    sum aside, and the window moments summed in float64: `ncc_scores`)."""
     f, h, w = frames_u8.shape
     th, tw = template.shape
     g = MegaGeometry((h, w), (th, tw), config).check()
@@ -183,7 +169,7 @@ def mega_track_chunk_reference(
         if ry1 >= ry0 and rx1 >= rx0:
             region = ensure_gray_f32(frames_u8[t, ry0 : ry1 + th, rx0 : rx1 + tw])
             best_val, bx, by = search_ops.argmax2d(
-                _chunk_scores(region, tpl - t_mean, t_std, sum_tc, n)
+                ncc_scores(region, tpl - t_mean, t_std, sum_tc, n)
             )
             best = (float(best_val), ry0 + by, rx0 + bx)
         else:  # collapsed window on a frame past n_valid

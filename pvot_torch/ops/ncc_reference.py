@@ -10,19 +10,52 @@ Per output position, with N = th * tw and the reference's epsilons:
 where t_std already carries one +1e-6 (template_stats).  Window sums are
 valid-mode cross-correlations (F.conv2d, which does not flip the kernel).
 Every function keeps its input's dtype, so the tests can run the same code
-in float64.  On the card, F.conv2d goes through cuDNN, whose float32
-default is TF32: a caller that runs this there turns
-torch.backends.cudnn.allow_tf32 off first.
+in float64.  On the card, cuDNN's float32 convolutions and cuBLAS's float32
+products may run in TF32 when the global flags allow it; every torch-ops
+NCC function of the port runs them inside `full_f32`, which holds them to
+full float32 whatever the caller set.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from pvot_torch.io.gray import ensure_gray_f32
+
+
+def _precision_knobs():
+    """(object, attribute, full-f32 value) of each float32 precision flag of
+    cuDNN convolutions and cuBLAS products: the per-operator flags where this
+    torch has them (reading the legacy ones after a mix of both APIs
+    raises), else the legacy allow_tf32 pair."""
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    matmul = torch.backends.cuda.matmul
+    if conv is not None and hasattr(conv, "fp32_precision") and hasattr(matmul, "fp32_precision"):
+        return [(conv, "fp32_precision", "ieee"), (matmul, "fp32_precision", "ieee")]
+    return [(torch.backends.cudnn, "allow_tf32", False), (matmul, "allow_tf32", False)]
+
+
+@contextlib.contextmanager
+def full_f32(device: torch.device):
+    """Float32 convolutions and products on `device` in full float32 (no
+    TF32) inside the block, the caller's flags restored after it; nothing
+    changes off the card."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    knobs = _precision_knobs()
+    saved = [getattr(obj, name) for obj, name, _ in knobs]
+    for obj, name, value in knobs:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for (obj, name, _), value in zip(knobs, saved):
+            setattr(obj, name, value)
 
 
 def template_stats(templ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,8 +84,30 @@ def template_stats_bucketed(templ_padded: torch.Tensor, n) -> Tuple[torch.Tensor
 
 
 def corr2_valid(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Valid-mode 2-D cross-correlation: (H, W), (h, w) -> (H-h+1, W-w+1)."""
-    return F.conv2d(image[None, None], kernel[None, None])[0, 0]
+    """Valid-mode 2-D cross-correlation: (H, W), (h, w) -> (H-h+1, W-w+1),
+    in full float32 on the card."""
+    with full_f32(image.device):
+        return F.conv2d(image[None, None], kernel[None, None])[0, 0]
+
+
+def ncc_scores(region: torch.Tensor, tc: torch.Tensor, t_std, sum_tc, n: float) -> torch.Tensor:
+    """The kernels' score formula over a float32 region (pvot/ops/ncc_mega.py
+    :462-470, pvot/ops/ncc_pallas.py:169-176):
+
+        (corr(region, tc) - mean * sum_tc) / ((std + 1e-6) * (t_std + 1e-6) * n)
+
+    with tc the centered template, sum_tc its sum and std = sqrt(max(var,
+    1e-6)).  The window moments are summed in float64 and rounded to float32
+    once: var = E[x^2] - E[x]^2 cancels on flat windows, where float32 sums
+    lose up to 3.7e-3 of a score (ROADMAP C, plain-version numerics)."""
+    ones = torch.ones(tc.shape, dtype=torch.float64, device=region.device)
+    r64 = region.to(torch.float64)
+    mean64 = corr2_valid(r64, ones) / n
+    var = (corr2_valid(r64 * r64, ones) / n - mean64 * mean64).to(torch.float32)
+    mean = mean64.to(torch.float32)
+    std = torch.sqrt(torch.clamp(var, min=1e-6))
+    cov = corr2_valid(region, tc) - mean * sum_tc
+    return cov / ((std + 1e-6) * (t_std + 1e-6) * n)
 
 
 def window_moments(frame: torch.Tensor, templ_shape: Tuple[int, int]):

@@ -1,9 +1,10 @@
 """Search-window math and argmax with row-major first-occurrence ties
 (pvot/ops/search.py).
 
-Window bounds are plain Python ints: the plain-PyTorch paths that use them
-run one frame at a time on the host's control flow.  Argmaxes return
-(best_val as a 0-d tensor, x, y as ints).
+Window bounds are plain Python ints: the steps that use them run one frame
+at a time on the host's control flow.  `argmax2d` returns (best_val as a
+0-d tensor, x, y as ints); the `*_best` argmaxes return one (value, x, y)
+float32 row on the scores' device, which a step reads once.
 """
 
 from __future__ import annotations
@@ -61,14 +62,6 @@ def _window_mask(shape, x0: int, y0: int, bounds: WindowBounds, device):
     )
 
 
-def masked_window_argmax(
-    ncc_map: torch.Tensor, bounds: WindowBounds
-) -> Tuple[torch.Tensor, int, int]:
-    """Argmax of a full map restricted to `bounds` (outside scores -inf)."""
-    mask = _window_mask(ncc_map.shape, 0, 0, bounds, ncc_map.device)
-    return argmax2d(torch.where(mask, ncc_map, float("-inf")))
-
-
 def region_origin(
     bounds: WindowBounds, out_w: int, out_h: int, span_x: int, span_y: int
 ) -> Tuple[int, int]:
@@ -77,11 +70,29 @@ def region_origin(
     return min(bounds.min_tx, out_w - span_x), min(bounds.min_ty, out_h - span_y)
 
 
-def masked_region_argmax(
-    region_scores: torch.Tensor, x0: int, y0: int, bounds: WindowBounds
-) -> Tuple[torch.Tensor, int, int]:
+def best_rows(scores: torch.Tensor, x0=0, y0=0) -> torch.Tensor:
+    """(..., 3) float32 rows (best value, x0 + x, y0 + y) of score maps
+    (..., h, w), row-major first occurrence (torch.argmax's rule), computed on
+    the maps' device so that one read brings all three to the host.
+    Coordinates are exact in float32 below 2^24."""
+    w = scores.shape[-1]
+    flat = scores.reshape(*scores.shape[:-2], -1)
+    idx = torch.argmax(flat, dim=-1, keepdim=True)
+    val = torch.gather(flat, -1, idx)[..., 0].to(torch.float32)
+    idx = idx[..., 0]
+    return torch.stack([val, (idx % w + x0).to(torch.float32),
+                        (idx // w + y0).to(torch.float32)], dim=-1)
+
+
+def masked_region_best(region_scores: torch.Tensor, x0: int, y0: int,
+                       bounds: WindowBounds) -> torch.Tensor:
     """Argmax over a region whose (0, 0) is map position (y0, x0), masked to
-    the window; returns map coordinates."""
+    the window (outside scores -inf), as one (3,) row (value, x, y) in map
+    coordinates on the scores' device."""
     mask = _window_mask(region_scores.shape, x0, y0, bounds, region_scores.device)
-    val, rx, ry = argmax2d(torch.where(mask, region_scores, float("-inf")))
-    return val, x0 + rx, y0 + ry
+    return best_rows(torch.where(mask, region_scores, float("-inf")), x0, y0)
+
+
+def masked_window_best(ncc_map: torch.Tensor, bounds: WindowBounds) -> torch.Tensor:
+    """Argmax of a full map restricted to `bounds`, as one (3,) row."""
+    return masked_region_best(ncc_map, 0, 0, bounds)

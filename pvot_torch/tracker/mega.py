@@ -29,6 +29,7 @@ from pvot_torch.ops.ncc_mega import (
 )
 from pvot_torch.ops.ncc_reference import template_stats, template_stats_bucketed
 from pvot_torch.tracker.state import StepOutput, TrackerState
+from pvot_torch.tracker.step import host_read
 
 
 def _state_from_chunk(rows: torch.Tensor, tplout: torch.Tensor,
@@ -94,7 +95,7 @@ def track_video_mega(
         all_rows.append(rows)
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, 10), np.float32))
-    return cur, _rows_to_output(torch.cat(all_rows).cpu().numpy())
+    return cur, _rows_to_output(host_read(torch.cat(all_rows)).numpy())
 
 
 def mega_chunk_step_multi(
@@ -152,7 +153,7 @@ def track_streams_mega(
         all_rows.append(rows)
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
-    host = torch.cat(all_rows, dim=1).cpu().numpy()  # (S, F, 10)
+    host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (S, F, 10)
     return cur, _rows_to_output(host.transpose(1, 0, 2))
 
 
@@ -221,5 +222,5 @@ def track_objects_mega(
         all_rows.append(rows)
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, k, 10), np.float32))
-    host = torch.cat(all_rows, dim=1).cpu().numpy()  # (K, F, 10)
+    host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (K, F, 10)
     return cur, _rows_to_output(host.transpose(1, 0, 2))

@@ -46,17 +46,23 @@ def test_port_imports_without_jax_or_pvot():
 _LAZY = """
 import json, sys
 import pvot_torch
-before = sorted(m for m in ("pvot_torch.io.serving", "pvot_torch.io.pipeline")
+before = sorted(m for m in ("pvot_torch.io.serving", "pvot_torch.io.pipeline",
+                            "pvot_torch.parallel.multi", "pvot_torch.models.ncc")
                 if m in sys.modules)
-from pvot_torch.io import serving
+from pvot_torch.io import pipeline, serving
+from pvot_torch.models import ncc
+from pvot_torch.parallel import multi
 from pvot_torch.tracker import mega
 same = [pvot_torch.serve_streams is serving.serve_streams,
         pvot_torch.serve_streams_grouped is serving.serve_streams_grouped,
         pvot_torch.track_streams_mega is mega.track_streams_mega,
         pvot_torch.serve_objects is serving.serve_objects,
-        pvot_torch.track_objects_mega is mega.track_objects_mega]
+        pvot_torch.track_objects_mega is mega.track_objects_mega,
+        pvot_torch.track_stream is pipeline.track_stream,
+        pvot_torch.track_video_multi is multi.track_video_multi,
+        pvot_torch.NccTracker is ncc.NccTracker]
 try:
-    pvot_torch.track_stream
+    pvot_torch.no_such_entry_point
     missing = False
 except AttributeError:
     missing = True
@@ -76,10 +82,11 @@ def test_serving_entry_points_load_lazily():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"before": [], "same": [True] * 5, "missing": True}
+    assert got == {"before": [], "same": [True] * 8, "missing": True}
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]
     assert scripts["pvot-torch-serve"] == "pvot_torch.cli.serve:main"
+    assert scripts["pvot-torch"] == "pvot_torch.cli.main:main"
 
 
 def test_tracker_config_matches_pvot():

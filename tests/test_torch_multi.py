@@ -2,7 +2,11 @@
 the chunk kernel, against the JAX package.
 
 Oracle: pvot.tracker.scan.track_video(strategy="fused", backend="xla") per
-stream, as tests/test_serving.py uses it; no Pallas interpret call.  Inputs:
+stream, as tests/test_serving.py uses it; on the global frames of the
+re-acquiring stream, JAX's shear engine in interpret mode
+(tests/jax_shear.py), which scores a global frame the way the chunk kernel
+does, where the `xla` engine takes whole-frame float32 integral images
+(pvot/ops/ncc_matmul.py:109-131) and lands 1.06e-5 off float64.  Inputs:
 the tests/test_serving.py geometry (250x94 frames, 16x16 template, radius 8),
 made from seeds with the synthetic generator.  Tolerance, as the tracker's
 equality contract (pvot/tracker/mega.py _outputs_equal): bbox, updated and
@@ -74,6 +78,22 @@ def streams():
     return out
 
 
+@pytest.fixture(scope="module")
+def shear_outs(streams):
+    """JAX's shear engine over each stream that has global frames (stream
+    index -> StepOutput)."""
+    from tests.jax_shear import track_video_shear
+
+    out = {}
+    for s, (frames, start, jo, _) in enumerate(streams):
+        if np.asarray(jo.used_global).any():
+            st = jax_init_state(jnp.asarray(start["template"]), tuple(
+                int(start[k]) for k in ("bbox_x", "bbox_y", "bbox_w", "bbox_h")))
+            out[s] = track_video_shear(frames[1 : 1 + N_VALID[s]], st, JaxConfig(**KW),
+                                       chunk_size=4)[1]
+    return out
+
+
 def _multi_args(streams):
     states = stack_states([state_from_numpy(s[1], device="cpu") for s in streams], device="cpu")
     frames = torch.from_numpy(np.stack([s[0][1:] for s in streams]))
@@ -92,19 +112,25 @@ def _assert_rows(rows, want, n_px=T * T):
     np.testing.assert_allclose(rows[:, O_SCORE], np.asarray(want.score), atol=2e-3 * scale)
 
 
-def test_fixture_covers_global_search(streams):
+def test_fixture_covers_global_search(streams, shear_outs):
+    assert sorted(shear_outs) == [0, 1, 3]  # the streams with global frames
     jo = streams[1][2]
     assert jo.used_global.any() and (jo.used_global & jo.updated).any()
     assert (jo.used_global & ~jo.updated).any()
 
 
-def test_plain_multi_matches_jax_per_stream(streams):
+def test_plain_multi_matches_jax_per_stream(streams, shear_outs):
     frames, args = _multi_args(streams)
     rows, tpl = mega_track_chunk_multi_reference(frames, *args, N_VALID,
                                                  pvot_torch.TrackerConfig(**KW))
     assert rows.shape == (4, F, 10) and tpl.shape == (4, T, T)
     for s, (_, start, jo, js) in enumerate(streams):
         nv = N_VALID[s]
+        if s in shear_outs:  # global frames scored as the shear engine scores them
+            glob = np.asarray(jo.used_global)
+            np.testing.assert_array_equal(shear_outs[s].bbox, jo.bbox)
+            jo = type(jo)(jo.bbox, np.where(glob, shear_outs[s].score, jo.score),
+                          jo.used_global, jo.updated)
         _assert_rows(rows[s, :nv], jo)
         np.testing.assert_allclose(tpl[s].numpy(), js["template"], atol=1e-6)
         # Frames past n_valid commit nothing: the state lanes hold.

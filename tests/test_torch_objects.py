@@ -18,11 +18,11 @@ Tolerances, as the tracker's equality contract (pvot/tracker/mega.py
 _outputs_equal): bbox, updated and used_global exactly; accepted scores
 within 1e-5 (5e-5 for the bucketed sets, whose JAX stats sum a padded
 template: pvot/tracker/mega.py:1005), all scores within 2e-3; templates and
-their stats within 1e-6.  Rejected scores of the bucketed sets: within
-5e-3.  On this clip's flat background a 12x12 window's variance E[x^2] -
-E[x]^2 cancels to about 1.5e-5, and the plain version's one 2-D box sum in
-float32 loses up to 3.7e-3 of a rejected score there against a float64
-evaluation (0.18929 for 0.19302; JAX's engine 0.19280).
+their stats within 1e-6.  On this clip's flat background a 12x12 window's
+variance E[x^2] - E[x]^2 cancels to about 1.5e-5; the plain version sums
+the window moments in float64 (pvot_torch.ops.ncc_reference.ncc_scores), so
+its rejected scores land on the float64 evaluation there (0.19302; JAX's
+engine 0.19280), inside the 2e-3 bound.
 """
 
 import itertools
@@ -136,7 +136,7 @@ def _assert_object(rows_or_out, want, bucketed: bool):
     acc = np.asarray(want.updated)
     np.testing.assert_allclose(score[acc], np.asarray(want.score)[acc],
                                atol=5e-5 if bucketed else 1e-5)
-    np.testing.assert_allclose(score, np.asarray(want.score), atol=5e-3 if bucketed else 2e-3)
+    np.testing.assert_allclose(score, np.asarray(want.score), atol=2e-3)
 
 
 def _chunk_args(start, device="cpu"):
@@ -402,8 +402,7 @@ def test_cuda_objects_kernel_matches_plain_and_k1(cases, cuda_device, name):
         np.testing.assert_array_equal(rows[..., lane].cpu().numpy(),
                                       want_rows[..., lane].cpu().numpy())
     np.testing.assert_allclose(rows[..., O_SCORE].cpu().numpy(),
-                               want_rows[..., O_SCORE].cpu().numpy(),
-                               atol=5e-3 if ext else 2e-3)
+                               want_rows[..., O_SCORE].cpu().numpy(), atol=2e-3)
     np.testing.assert_allclose(tpl.cpu().numpy(), want_tpl.cpu().numpy(), atol=1e-6)
     for i, (_, _, w, h) in enumerate(rois):
         one = [a[i] for a in args]

@@ -128,11 +128,11 @@ def test_masked_argmaxes_match_jax(rng, cx, cy):
     m = _tied_map(rng)
     bounds_j = jsearch.local_window_bounds(cx, cy, 6, 4, 31, 23, 5, 4)
     bounds_t = tsearch.local_window_bounds(cx, cy, 6, 4, 31, 23, 5, 4)
-    _same(tsearch.masked_window_argmax(torch.from_numpy(m), bounds_t),
+    _same(tsearch.masked_window_best(torch.from_numpy(m), bounds_t).tolist(),
           jsearch.masked_window_argmax(jnp.asarray(m), bounds_j))
     x0, y0 = tsearch.region_origin(bounds_t, 31, 23, 11, 9)
     region = np.ascontiguousarray(m[y0 : y0 + 9, x0 : x0 + 11])
-    _same(tsearch.masked_region_argmax(torch.from_numpy(region), x0, y0, bounds_t),
+    _same(tsearch.masked_region_best(torch.from_numpy(region), x0, y0, bounds_t).tolist(),
           jsearch.masked_region_argmax(jnp.asarray(region), x0, y0, bounds_j))
 
 
@@ -140,7 +140,7 @@ def test_collapsed_window_masks_everything(rng):
     m = torch.from_numpy(_tied_map(rng))
     bounds = tsearch.local_window_bounds(-90, -90, 6, 4, 31, 23, 5, 4)
     assert not bounds.valid
-    val, x, y = tsearch.masked_window_argmax(m, bounds)
+    val, x, y = tsearch.masked_window_best(m, bounds).tolist()
     assert float(val) == float("-inf") and (x, y) == (0, 0)
 
 

@@ -173,7 +173,7 @@ def test_stream_feed_holds_after_end(monkeypatch, use_native):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(backend="xla"), "A10"), (dict(highest=False), "A6"),
+    (dict(backend="xla"), "A15"), (dict(highest=False), "A6"),
     (dict(devices=["cpu", "cpu"]), "A12"),
 ])
 def test_serving_options_not_ported_raise(streams, kwargs, item):
@@ -253,7 +253,7 @@ def test_cli_synthetic_streams_write_trajectories(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (("--synthetic", "200x120x3", "--scan-backend", "xla"), "A10"),
+    (("--synthetic", "200x120x3", "--scan-backend", "xla"), "A15"),
     (("--synthetic", "200x120x3", "--fast"), "A6"),
     (("--synthetic", "200x120x3", "--devices", "2"), "A12"),
 ])

@@ -85,13 +85,39 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
  15. TF32: the xla engine on the card with PyTorch's default TF32 flags,
      equal to the plain engine; then the kernels' times at the main path's
      shapes;
- 16. print the kernels' JSON line (each kernel's time beside its plain
+ 16. the bf16 score tiers (highest=False, score_passes 1, 2, 3) of K1, each
+     against its plain tier under the contract on phase 3's chunk, its
+     re-acquisition clip (the global strips score at the tier too),
+     1080p/160/r160 with global frames and the 256x256 template, only the
+     tier's kernel launched; per tier a local and a global frame timed
+     beside their bounds, the plain version and F.conv2d in bf16;
+ 17. lanes at each tier: K2 at S = 4 (phase 4's streams) and K3 uniform and
+     bucketed (phase 5's roles, 12 frames) against their plain tiers, every
+     lane bit-equal to K1 on it alone; K2 at S = 8 and K3 at K = 8, all
+     local, timed per tier;
+ 18. the JAX package's headline configuration, track_video_mega at 1 pass
+     over the bench clip (run_bench, counters zeroed just before its checked
+     run): 0 px, only the 1-pass K1, twice a frame; then 3 and 2 passes, 0 px
+     each; frames/s of every tier;
+ 19. serve_streams at 1 pass over phase 7's 8 streams: 0 px, each equal to
+     track_video_mega at 1 pass alone, only the 1-pass K2 launched;
+ 20. K4 and K5 at 3 passes against their plain versions (phase 8's checks);
+     track_stream(backend="pallas_fast") over the bench clip: 0 px, the
+     3-pass K5 once a frame and nothing else; pvot-torch --fast over 512
+     frames of its synthetic clip: 0 px, no kernel (the torch-ops engine);
+     K5 and the K4 region (321x321, 1080p/160) timed at 3 passes;
+ 21. the batch cadence: track_video_mega(batch=4) over 2047 frames of the
+     bench clip (a 3-frame tail), equal to track_video_batched on the plain
+     engine, launches 2 per batch plus 1 for the tail;
+ 22. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
-     FP32 peak and its bytes at the memory rate, counted from this run's
-     records; `library_ms` is null, as no PyTorch call computes a chunk of
-     tracking or a masked NCC argmax, and `conv2d_corr_ms` times F.conv2d on
-     the correlation term alone as a yardstick), the card's line, and last
-     the result line.
+     FP32 peak, or at the bf16 tensor-core peak times passes for a tier, and
+     its bytes at the memory rate, counted from this run's records;
+     `library_ms` is null, as no PyTorch call computes a chunk of tracking
+     or a masked NCC argmax, and `conv2d_corr_ms` times F.conv2d on the
+     correlation term alone as a yardstick, in bf16 for the tiers; each
+     kernel's `tiers` holds the same fields per tier), the card's line, and
+     last the result line.
 
 TF32 is off from phase 3 on, except in phase 15.
 """
@@ -187,34 +213,39 @@ def time_ms(fn, repeats: int) -> float:
 
 
 K4_ATOL = 1e-4  # pvot/ops/ncc_pallas.py:650-654: the JAX probe's bound for a map
+TIERS = (1, 2, 3)  # the chunk kernels' bf16 score passes (highest=False)
 K5_ATOL = 1e-5  # the fused argmax's value; (x, y) exactly
 
 
-def check_k4(dev, rng) -> float:
+def check_k4(dev, rng, highest: bool = True) -> float:
     """K4 (ncc_map_lanes) against its plain version on random-uniform images:
-    720p / 80x80, 1080p / 160x160 and odd shapes, u8 and f32, and the batched
-    form over N = 8 frames equal to N single calls.  Returns the largest
-    absolute difference."""
+    720p / 80x80, 1080p / 160x160 and odd shapes, u8 and f32, at the tier
+    `highest` selects (False: 3 bf16 passes); at the float32 tier also the
+    batched form over N = 8 frames equal to N single calls.  Returns the
+    largest absolute difference."""
     from pvot_torch.ops.ncc_pallas import (
         ncc_map_lanes_reference, ncc_map_pallas, ncc_map_pallas_batched,
         ncc_map_pallas_reference,
     )
 
     err = 0.0
+    tier = "f32" if highest else "3-pass"
     for (h, w), (th, tw), u8 in (((720, 1280), (80, 80), True), ((720, 1280), (80, 80), False),
                                  ((1080, 1920), (160, 160), True), ((57, 133), (9, 11), False),
                                  ((200, 140), (17, 13), True), ((300, 301), (80, 256), False)):
         img = (torch.from_numpy(rng.integers(0, 256, (h, w), np.uint8)) if u8
                else torch.from_numpy(rng.random((h, w), dtype=np.float32))).to(dev)
         templ = torch.from_numpy(rng.random((th, tw), dtype=np.float32)).to(dev)
-        got = ncc_map_pallas(img, templ)
-        want = ncc_map_pallas_reference(img, templ)
+        got = ncc_map_pallas(img, templ, highest=highest)
+        want = ncc_map_pallas_reference(img, templ, highest=highest)
         d = float((got - want).abs().max())
-        print(f"K4 {h}x{w} / {th}x{tw} {'u8' if u8 else 'f32'}: map {tuple(got.shape)}, "
+        print(f"K4 {tier} {h}x{w} / {th}x{tw} {'u8' if u8 else 'f32'}: map {tuple(got.shape)}, "
               f"max |kernel - plain| {d:.3g} (<= {K4_ATOL})")
         if not d <= K4_ATOL:
             raise AssertionError("K4 and its plain version disagree")
         err = max(err, d)
+    if not highest:
+        return err
     frames = torch.from_numpy(rng.integers(0, 256, (8, 720, 1280), np.uint8)).to(dev)
     templ = frames[0, 300:380, 600:680].float() / 255.0
     batched = ncc_map_pallas_batched(frames, templ)
@@ -231,14 +262,15 @@ def check_k4(dev, rng) -> float:
     return max(err, d)
 
 
-def check_k5(dev, clip, rng) -> float:
-    """K5 (region_argmax_lanes) against its plain version: the value within
-    1e-5 and (x, y) exactly, at 720p / 80x80 / span 121 on the bench clip's
-    frames (the target's template) and on random ones, with windows whole,
-    partly masked and fully masked, u8 and f32, lanes sharing one frame and
-    lanes each with their own; and forced ties (a constant region, whose
-    every position scores the same, must give the window's first
-    position).  Returns the largest value difference."""
+def check_k5(dev, clip, rng, passes: int = 0) -> float:
+    """K5 (region_argmax_lanes) against its plain version at the tier
+    `passes` (0: float32, 3: bf16 hi/lo): the value within 1e-5 and (x, y)
+    exactly, at 720p / 80x80 / span 121 on the bench clip's frames (the
+    target's template) and on random ones, with windows whole, partly masked
+    and fully masked, u8 and f32, lanes sharing one frame and lanes each with
+    their own; and forced ties (a constant region, whose every position
+    scores the same, must give the window's first position).  Returns the
+    largest value difference."""
     from pvot_torch.ops.ncc_pallas import region_argmax_lanes, region_argmax_lanes_reference
 
     spec, frames = clip
@@ -264,9 +296,11 @@ def check_k5(dev, clip, rng) -> float:
         ("random frames, f32", torch.from_numpy(rng.random((4, 720, 1280), dtype=np.float32)
                                                 ).to(dev)),
     ):
-        got = region_argmax_lanes(images, templ, t_mean, t_std, lanes, span).cpu().numpy()
+        label = f"{label}, {passes or 'f32'}{'-pass' if passes else ''}"
+        got = region_argmax_lanes(images, templ, t_mean, t_std, lanes, span,
+                                  passes).cpu().numpy()
         want = region_argmax_lanes_reference(images, templ, t_mean, t_std, lanes,
-                                             span).cpu().numpy()
+                                             span, passes).cpu().numpy()
         if not (np.array_equal(got[:, 1:], want[:, 1:])
                 and np.array_equal(np.isfinite(got[:, 0]), np.isfinite(want[:, 0]))):
             raise AssertionError(f"K5 {label}: kernel {got.tolist()} vs plain {want.tolist()}")
@@ -281,10 +315,11 @@ def check_k5(dev, clip, rng) -> float:
     flat = torch.full((1, 300, 300), 0.5, device=dev)
     tie = [(0, 0, 7, 60, 13, 50)]
     got = region_argmax_lanes(flat, templ[:16, :16].contiguous(), *template_stats(
-        templ[:16, :16]), tie, (121, 121)).cpu().numpy()[0]
+        templ[:16, :16]), tie, (121, 121), passes).cpu().numpy()[0]
     if got[1:].tolist() != [7.0, 13.0]:
         raise AssertionError(f"K5 tie on a constant region went to {got[1:].tolist()}, not (7, 13)")
-    print(f"K5 forced tie (constant region): the window's first position (7, 13)")
+    print(f"K5 forced tie (constant region, passes {passes}): the window's first position "
+          f"(7, 13)")
     return err
 
 
@@ -318,8 +353,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from pvot_torch.bench import (
-        bench_clip, bound_ms, gpu_identity, max_l1_err_px, run_bench, scored_positions, state_at,
-        stream_cuts, stream_err_px, stream_states,
+        bench_clip, bound_ms, gpu_identity, max_l1_err_px, run_bench, scored_positions,
+        scored_windows, state_at, stream_cuts, stream_err_px, stream_states, union_pixels,
     )
 
     smi = gpu_identity()[0]
@@ -331,9 +366,9 @@ def main() -> int:
     from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_video, target_bbox
     from pvot_torch.ops import _build
     from pvot_torch.ops.ncc_mega import (
-        MegaGeometry, mega_track_chunk, mega_track_chunk_multi,
+        MegaGeometry, chunk_launches, mega_track_chunk, mega_track_chunk_multi,
         mega_track_chunk_multi_reference, mega_track_chunk_objects,
-        mega_track_chunk_objects_reference, mega_track_chunk_reference,
+        mega_track_chunk_objects_reference, mega_track_chunk_reference, reset_launches,
     )
     from pvot_torch.parallel.multi import (
         init_multi_state, init_multi_state_bucketed, stack_states, unstack_state,
@@ -370,19 +405,29 @@ def main() -> int:
             raise AssertionError(f"{what}: launches {got}, expected {want} and no others")
 
     def reset_counts():
-        for kernel in kernels:
-            kernel.launches = 0
+        reset_launches(*kernels)
 
-    def chunk_bound(lanes, n_steps, frame_bytes):
+    def chunk_bound(lanes, n_steps, passes=0, shared_frame=False):
         """(ms per step, what bounds it) of the least time for lanes [(start
         bbox, host rows (F, 10), n_valid, frame shape, template shape,
-        config)] that read frame_bytes of frames once."""
-        fma = other_bytes = 0
+        config)], the correlation at the tier `passes` (0: float32).  Bytes:
+        each scored frame's window (the whole u8 frame on a global step) read
+        once, the union of the lanes' windows where they share one frame (K3),
+        the template read and written, the records written."""
+        fma = n_bytes = 0
+        windows = []
         for start, rows, nv, fshape, tshape, cfg in lanes:
-            fma += tshape[0] * tshape[1] * scored_positions(
-                start, rows[:nv, :4], rows[:nv, 9] != 0, fshape, tshape, cfg)
-            other_bytes += 2 * 4 * tshape[0] * tshape[1] + 40 * len(rows)
-        least, by = bound_ms(fma, frame_bytes + other_bytes)
+            th, tw = tshape
+            windows.append(scored_windows(start, rows[:nv, :4], rows[:nv, 9] != 0, fshape,
+                                          tshape, cfg))
+            fma += th * tw * sum((ww - tw + 1) * (wh - th + 1) for _, _, ww, wh in windows[-1])
+            n_bytes += 2 * 4 * th * tw + 40 * len(rows)
+        if shared_frame:
+            n_bytes += sum(union_pixels([lane[t] for lane in windows if t < len(lane)])
+                           for t in range(max(len(lane) for lane in windows)))
+        else:
+            n_bytes += sum(ww * wh for lane in windows for _, _, ww, wh in lane)
+        least, by = bound_ms(fma, n_bytes, passes)
         return least / n_steps, by
 
     def windows_of(clip, start, rows, th, tw, radius):
@@ -397,13 +442,15 @@ def main() -> int:
             out.append(clip[t, y0 : y0 + th + 2 * radius, x0 : x0 + tw + 2 * radius])
         return torch.stack(out).float()[:, None] / 255.0
 
-    def conv2d_corr_ms(windows, templates, repeats=5):
+    def conv2d_corr_ms(windows, templates, repeats=5, dtype=torch.float32):
         """F.conv2d on the correlation term alone over windows (N, K, h, w)
-        against K templates (K, th, tw), per row of windows: the nearest
-        PyTorch call, a yardstick that the port never calls."""
+        against K templates (K, th, tw), per row of windows, in `dtype`
+        (bfloat16: the 1-pass term alone): the nearest PyTorch call, a
+        yardstick that the port never calls."""
         import torch.nn.functional as tnf
 
-        weight = templates[:, None].contiguous()
+        weight = templates[:, None].to(dtype).contiguous()
+        windows = windows.to(dtype)
         return time_ms(lambda: tnf.conv2d(windows, weight, groups=len(weight)),
                        repeats) / len(windows)
 
@@ -413,19 +460,21 @@ def main() -> int:
     print(f"build: {_build.build_info['path']} loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_info['seconds']:.1f} s)")
     for line in _build.build_info["log"].splitlines():
-        entry = re.search(r"(score_kernel|commit_kernel)(?:I((?:Lb[01]E)+)E)?", line)
-        ncc = re.search(r"ncc_kernelI([hf])Lb([01])E", line)
-        if "Compiling entry" in line and ncc:  # ncc_kernel<pixel type, kArgmax>
+        entry = re.search(r"(score_kernel_tier|score_kernel|commit_kernel|lookahead_kernel)"
+                          r"(?:I((?:L[bi]\d+E)+)E)?", line)
+        ncc = re.search(r"ncc_kernelI([hf])Lb([01])ELi(\d)E", line)
+        if "Compiling entry" in line and ncc:  # ncc_kernel<pixel type, kArgmax, kPasses>
             print(f"  ptxas: ncc_kernel<{'u8' if ncc.group(1) == 'h' else 'f32'}, "
-                  f"{'K5' if ncc.group(2) == '1' else 'K4'}>")
+                  f"{'K5' if ncc.group(2) == '1' else 'K4'}, passes {ncc.group(3)}>")
         elif "Compiling entry" in line and entry:  # score_kernel<kWhole, kOne, kExt> etc.
-            flags = ",".join(re.findall(r"Lb([01])", entry.group(2) or ""))
+            flags = ",".join(re.findall(r"L[bi](\d+)", entry.group(2) or ""))
             print(f"  ptxas: {entry.group(1)}" + (f"<{flags}>" if flags else ""))
         elif "registers" in line or "bytes stack" in line:
             print("  ptxas:", line.strip())
     for th, lanes in ((80, 1), (80, 8), (160, 1), (256, 1)):
-        print(f"  score blocks per SM, {th}x{th} template, {lanes} lane(s): "
-              f"{lib.pvot_mega_score_blocks_per_sm(th, th, lanes)}")
+        print(f"  score blocks per SM, {th}x{th} template, {lanes} lane(s), float32 / 1 / 3 "
+              f"passes: " + " / ".join(str(lib.pvot_mega_score_blocks_per_sm(th, th, lanes, p))
+                                       for p in (0, 1, 3)))
     print("  K4/K5 template rows staged at once: "
           + ", ".join(f"{t}x{t}: {lib.pvot_ncc_chunk_rows(t, t)}" for t in (80, 160, 256)))
     # The wrapper's envelope check mirrors the kernel's shared-memory plan.
@@ -454,8 +503,8 @@ def main() -> int:
     plain_ms = time_ms(lambda: mega_track_chunk_reference(*args), 1) / n
     k1_rows = mega_track_chunk(*args)[0].cpu().numpy()
     k1_start = args[1].tolist()
-    k1_bound, k1_by = chunk_bound([(k1_start, k1_rows, n, frames.shape[1:], (80, 80), config)],
-                                  n, chunk.numel())
+    k1_bound, k1_by = chunk_bound([(k1_start, k1_rows, n, frames.shape[1:], (80, 80),
+                                    config)], n)
     k1_conv = conv2d_corr_ms(windows_of(chunk, k1_start, k1_rows, 80, 80, 60), args[2][None])
     print(f"K1 local frames (720p/80/r60), ms per frame: kernel {ms:.5f}, plain {plain_ms:.5f}, "
           f"bound {k1_bound:.5f} ({k1_by}); F.conv2d on the correlation term alone {k1_conv:.5f}")
@@ -490,7 +539,7 @@ def main() -> int:
     g_ms = time_ms(lambda: mega_track_chunk(*hargs), 3) / gh
     g_plain_ms = time_ms(lambda: mega_track_chunk_reference(*hargs), 1) / gh
     g_bound = chunk_bound([(hargs[1].tolist(), hrows, gh, frames.shape[1:], (80, 80), config)],
-                          gh, hargs[0].numel())[0]
+                          gh)[0]
     print(f"K1 global frames (720p/80, 641x1201 positions), ms per frame over {gh}: kernel "
           f"{g_ms:.4f}, plain {g_plain_ms:.4f}, bound {g_bound:.4f}")
 
@@ -520,11 +569,11 @@ def main() -> int:
         raise AssertionError("1080p/160 local timing chunk left local tracking")
     b_ms = time_ms(lambda: mega_track_chunk(*b_local), 5) / 6
     b_bound = chunk_bound([(b_local[1].tolist(), b_rows, 6, bframes.shape[1:], (160, 160),
-                            bconfig)], 6, b_local[0].numel())[0]
+                            bconfig)], 6)[0]
     b_global, bg_rows = held_global(b_local[0][:4], 160, bconfig)
     bg_ms = time_ms(lambda: mega_track_chunk(*b_global), 3) / 4
     bg_bound = chunk_bound([(b_global[1].tolist(), bg_rows, 4, bframes.shape[1:], (160, 160),
-                             bconfig)], 4, b_global[0].numel())[0]
+                             bconfig)], 4)[0]
     print(f"K1 1080p/160/r160, ms per frame: local {b_ms:.4f} (bound {b_bound:.4f}), global "
           f"{bg_ms:.4f} (bound {bg_bound:.4f})")
     sspec = SyntheticSpec(width=1280, height=720, num_frames=4, target_w=256, target_h=256, seed=4)
@@ -562,7 +611,7 @@ def main() -> int:
     k2_rows = got[0].cpu().numpy()
     k2_bound, k2_by = chunk_bound(
         [(st4[0][s_].tolist(), k2_rows[s_], int(nv4[s_]), frames.shape[1:], (80, 80), gconfig)
-         for s_ in range(4)], f4, fr4.numel())
+         for s_ in range(4)], f4)
     print(f"K2 S=4 (one stream global on {n_global} of {f4} steps), ms per frame step over "
           f"the same {f4} steps: kernel {k2_ms:.5f}, plain {k2_plain_ms:.5f}, "
           f"bound {k2_bound:.5f} ({k2_by})")
@@ -649,7 +698,7 @@ def main() -> int:
             *oargs, bucket_extents=bucket), 1) / of
         k4_bound[label] = chunk_bound(
             [(oargs[1][i].tolist(), rows4[i], of, frames.shape[1:], extents[i], config)
-             for i in range(4)], of, ochunk.numel())[0]
+             for i in range(4)], of, shared_frame=True)[0]
         print(f"K3 {label} K=4 (one object global on {int(rows4[3, :, 9].sum())} of {of} "
               f"steps), ms per step over the same {of} steps: kernel {k4_ms[label]:.5f}, plain "
               f"{k4_plain_ms[label]:.5f}, bound {k4_bound[label]:.5f}")
@@ -691,7 +740,7 @@ def main() -> int:
     xrows = got[0].cpu().numpy()
     k3_x_ms = time_ms(lambda: mega_track_chunk_objects(*xargs, bucket_extents=xext), 5) / xf
     k3_x_bound = chunk_bound([(xargs[1][i].tolist(), xrows[i], xf, xclip.shape[1:], xext[i],
-                               config) for i in range(3)], xf, xchunk.numel())[0]
+                               config) for i in range(3)], xf, shared_frame=True)[0]
     print(f"K3 1080p bucket 176x176 staged in chunks of "
           f"{MegaGeometry(xclip.shape[1:], (176, 176), config).stage_rows(3)} rows: each object "
           f"bit-equal to K1 alone at its true extent; ms per step over {xf} steps (one object "
@@ -705,7 +754,7 @@ def main() -> int:
     l8_rows = mega_track_chunk_objects(*l8args)[0].cpu().numpy()
     k3_bound, k3_by = chunk_bound(
         [(l8args[1][i].tolist(), l8_rows[i], of, frames.shape[1:], (80, 80), config)
-         for i in range(8)], of, lchunk.numel())
+         for i in range(8)], of, shared_frame=True)
     k3_conv = conv2d_corr_ms(torch.cat([windows_of(lchunk, l8args[1][i].tolist(), l8_rows[i],
                                                    80, 80, 60) for i in range(8)], dim=1),
                              l8.template)
@@ -1047,7 +1096,278 @@ def main() -> int:
           f"({100 * busy / prof_wall:.1f} %); by kernel (launches, ms): "
           + "; ".join(f"{name[:60]}: {n}, {ms:.3f}" for name, (n, ms) in top))
 
-    # Phase 16.
+    # Phase 16: the bf16 score tiers of K1 against their plain versions, TF32
+    # off: phase 3's chunk, its re-acquisition clip (global frames score at
+    # the tier in the strips), 1080p/160/r160 with global frames and the
+    # 256 x 256 template; then per tier the times of a local and a global
+    # frame beside their bounds (bf16 passes at the tensor-core peak), the
+    # plain version's and F.conv2d's in bf16 (the 1-pass term alone).
+    k1_tiers, k2_tiers, k3_tiers, fps_tiers = {}, {}, {}, {"f32": result["value"]}
+    launches_by_tier = {"f32": result["kernel_launches_by_passes"][0]}
+    k1_bf16_conv = conv2d_corr_ms(windows_of(chunk, k1_start, k1_rows, 80, 80, 60), args[2][None],
+                                  dtype=torch.bfloat16)
+    n_k1 = args[0].shape[0]
+    g4 = (hargs[0][:4], *hargs[1:7], 4, config)
+    for p in TIERS:
+        kw = dict(highest=False, score_passes=p)
+        reset_counts()
+        err = compare(f"K1 {p}-pass 720p tracked chunk", mega_track_chunk(*args, **kw),
+                      mega_track_chunk_reference(*args, **kw))
+        if mega_track_chunk.launches_by_tier != {0: 0, 1: 0, 2: 0, 3: 0, p: 2 * n_k1}:
+            raise AssertionError(f"K1 {p}-pass launched {mega_track_chunk.launches_by_tier}")
+        got = mega_track_chunk(*gargs, **kw)
+        if not bool((got[0][:, 9] != 0).any()):
+            raise AssertionError(f"K1 {p}-pass: the re-acquisition clip ran no global frame")
+        err = max(err, compare(f"K1 {p}-pass 720p re-acquisition clip", got,
+                               mega_track_chunk_reference(*gargs, **kw)))
+        err = max(err, compare(f"K1 {p}-pass 1080p/160/r160", mega_track_chunk(*bargs, **kw),
+                               mega_track_chunk_reference(*bargs, **kw), 160 * 160))
+        err = max(err, compare(f"K1 {p}-pass 1080p/160 global frames",
+                               mega_track_chunk(*bglob, **kw),
+                               mega_track_chunk_reference(*bglob, **kw), 160 * 160))
+        err = max(err, compare(f"K1 {p}-pass 720p/256x256/r40", mega_track_chunk(*sargs, **kw),
+                               mega_track_chunk_reference(*sargs, **kw), 256 * 256))
+        t_ms = time_ms(lambda: mega_track_chunk(*args, **kw), 10) / n_k1
+        t_plain = time_ms(lambda: mega_track_chunk_reference(*args, **kw), 1) / n_k1
+        t_rows = mega_track_chunk(*args, **kw)[0].cpu().numpy()
+        t_bound, t_by = chunk_bound([(k1_start, t_rows, n_k1, frames.shape[1:], (80, 80),
+                                      config)], n_k1, p)
+        hrows_p = mega_track_chunk(*hargs, **kw)[0].cpu().numpy()
+        if not (hrows_p[:, 9] != 0).all():
+            raise AssertionError(f"K1 {p}-pass: the held template left global search")
+        tg_ms = time_ms(lambda: mega_track_chunk(*hargs, **kw), 3) / gh
+        tg_plain = time_ms(lambda: mega_track_chunk_reference(*g4, **kw), 1) / 4
+        tg_bound, tg_by = chunk_bound([(hargs[1].tolist(), hrows_p, gh, frames.shape[1:],
+                                        (80, 80), config)], gh, p)
+        k1_tiers[p] = dict(max_abs_err=err, ms=t_ms, plain_ms=t_plain, bound_ms=t_bound,
+                           bound_by=t_by, conv2d_corr_ms=k1_bf16_conv, global_frame_ms=tg_ms,
+                           plain_global_frame_ms=tg_plain, global_frame_bound_ms=tg_bound,
+                           global_frame_bound_by=tg_by)
+        print(f"K1 {p}-pass, ms per frame: local (720p/80/r60) kernel {t_ms:.5f}, plain "
+              f"{t_plain:.5f}, bound {t_bound:.6f} ({t_by}), F.conv2d bf16 {k1_bf16_conv:.5f}; "
+              f"global kernel {tg_ms:.4f}, plain {tg_plain:.4f}, bound {tg_bound:.5f} ({tg_by}) "
+              f"[f32: local {ms:.5f}, global {g_ms:.4f}]")
+
+    # Phase 17: lanes at each tier.  K2 at S = 4 (phase 4's streams: local,
+    # re-acquiring, ended, partial) against its plain tier and each stream
+    # bit-equal to K1 on it alone; K3 uniform and bucketed (phase 5's four
+    # roles over 12 frames) likewise; then K2 at S = 8 and K3 at K = 8, all
+    # local, timed beside the plain version and the bound.
+    f8l = torch.stack([torch.from_numpy(frames[64 * i + 1 : 64 * i + 33]) for i in range(8)]).to(dev)
+    st8l = stacked_args([state_at(spec, frames, 64 * i, dev) for i in range(8)])
+    nv8l = torch.full((8,), 32, dtype=torch.int32, device=dev)
+
+    def s8_windows(rows8):
+        """The 8 local streams' windows side by side, (32, 8, 200, 200)."""
+        return torch.cat([windows_of(f8l[i], st8l[0][i].tolist(), rows8[i], 80, 80, 60)
+                          for i in range(8)], dim=1)
+
+    of12 = 12
+    roles = {}
+    for label, extents in (("uniform", [(80, 80)] * 4),
+                           ("bucketed", [(80, 80), (64, 48), (48, 64), (32, 32)])):
+        templates = [g0[y : y + eh, x : x + ew] for (x, y), (eh, ew) in zip(cut_at, extents)]
+        rois = [(x, y, ew, eh) for (x, y), (eh, ew) in zip(start_at, extents)]
+        ost = (init_multi_state if label == "uniform" else init_multi_state_bucketed)(templates,
+                                                                                    rois)
+        roles[label] = ((ochunk[:of12], torch.stack(list(ost.bbox), dim=-1), ost.template,
+                         ost.t_mean, ost.t_std, ost.lost_count, ost.use_global, of12, config),
+                        None if label == "uniform" else extents)
+    for p in TIERS:
+        kw = dict(highest=False, score_passes=p)
+        got = mega_track_chunk_multi(fr4, *st4, nv4, gconfig, **kw)
+        e2 = compare(f"K2 {p}-pass S=4", got, mega_track_chunk_multi_reference(
+            fr4, *st4, nv4, gconfig, **kw))
+        for s_ in range(4):
+            k1 = mega_track_chunk(fr4[s_], *(a[s_] for a in st4), int(nv4[s_]), gconfig, **kw)
+            if not (torch.equal(k1[0], got[0][s_]) and torch.equal(k1[1], got[1][s_])):
+                raise AssertionError(f"K2 {p}-pass stream {s_} differs from K1 on it alone")
+        e3 = 0.0
+        for label, (oa, bucket) in roles.items():
+            got = mega_track_chunk_objects(*oa, bucket_extents=bucket, **kw)
+            if not bool((got[0][3, :, 9] != 0).any()):
+                raise AssertionError(f"K3 {p}-pass {label}: the object from outside ran no "
+                                     "global frame")
+            e3 = max(e3, compare(f"K3 {p}-pass {label} K=4", got,
+                                 mega_track_chunk_objects_reference(*oa, bucket_extents=bucket,
+                                                                    **kw)))
+            for i, (eh, ew) in enumerate(bucket or [(80, 80)] * 4):
+                one = [a[i] for a in oa[1:7]]
+                one[1] = one[1][:eh, :ew].contiguous()
+                k1 = mega_track_chunk(oa[0], *one, of12, config, **kw)
+                if not (torch.equal(k1[0], got[0][i]) and torch.equal(k1[1], got[1][i, :eh, :ew])):
+                    raise AssertionError(f"K3 {p}-pass {label} object {i} differs from K1 alone")
+        print(f"K2 {p}-pass S=4 and K3 {p}-pass uniform and bucketed K=4: each lane's records "
+              f"and template bit-equal to K1 on it alone")
+        k2_rows = mega_track_chunk_multi(f8l, *st8l, nv8l, config, **kw)[0].cpu().numpy()
+        k2t = time_ms(lambda: mega_track_chunk_multi(f8l, *st8l, nv8l, config, **kw), 5) / 32
+        k2p = time_ms(lambda: mega_track_chunk_multi_reference(f8l, *st8l, nv8l, config, **kw),
+                      1) / 32
+        k2b, k2by = chunk_bound([(st8l[0][i].tolist(), k2_rows[i], 32, frames.shape[1:], (80, 80),
+                                  config) for i in range(8)], 32, p)
+        k2c = conv2d_corr_ms(s8_windows(k2_rows), st8l[1], dtype=torch.bfloat16)
+        k2_tiers[p] = dict(max_abs_err=e2, ms=k2t, plain_ms=k2p, bound_ms=k2b, bound_by=k2by,
+                           conv2d_corr_ms=k2c)
+        l8_rows_p = mega_track_chunk_objects(*l8args, **kw)[0].cpu().numpy()
+        k3t = time_ms(lambda: mega_track_chunk_objects(*l8args, **kw), 5) / of
+        k3p = time_ms(lambda: mega_track_chunk_objects_reference(*l8args, **kw), 1) / of
+        k3b, k3by = chunk_bound([(l8args[1][i].tolist(), l8_rows_p[i], of, frames.shape[1:],
+                                  (80, 80), config) for i in range(8)], of, p,
+                                shared_frame=True)
+        k3c = conv2d_corr_ms(torch.cat([windows_of(lchunk, l8args[1][i].tolist(), l8_rows_p[i],
+                                                   80, 80, 60) for i in range(8)], dim=1),
+                             l8.template, dtype=torch.bfloat16)
+        k3_tiers[p] = dict(max_abs_err=e3, ms=k3t, plain_ms=k3p, bound_ms=k3b, bound_by=k3by,
+                           conv2d_corr_ms=k3c)
+        print(f"K2 {p}-pass S=8 all local, ms per step: kernel {k2t:.5f}, plain {k2p:.5f}, bound "
+              f"{k2b:.6f} ({k2by}), F.conv2d bf16 {k2c:.5f}; K3 {p}-pass K=8 all local: "
+              f"kernel {k3t:.5f}, plain {k3p:.5f}, bound {k3b:.6f} ({k3by}), F.conv2d bf16 {k3c:.5f}")
+    k2_f32_s8 = time_ms(lambda: mega_track_chunk_multi(f8l, *st8l, nv8l, config), 5) / 32
+    k2_f32_s8_conv = conv2d_corr_ms(s8_windows(mega_track_chunk_multi(
+        f8l, *st8l, nv8l, config)[0].cpu().numpy()), st8l[1])
+
+    # Phase 18: the JAX package's headline configuration, track_video_mega at
+    # 1 pass over the bench clip (2048 frames, chunk 512; bench.py:78-88),
+    # with the counters reset just before: 0 px, only the 1-pass K1 launched,
+    # twice per frame; then 3 and 2 passes, each 0 px; frames/s of every tier
+    # from this run (the float32 one is phase 6's).
+    for p in (1, 3, 2):
+        reset_counts()
+        tier_result = run_bench(clip=(spec, frames), highest=False, score_passes=p)
+        # run_bench zeroes K1's counters just before its checked run and
+        # reads them just after; the other kernels' stay 0 through its runs.
+        others = {n_: c for n_, c in counts().items() if n_ != "K1"}
+        if (any(others.values()) or tier_result["kernel_launches"] != 2 * 2048
+                or tier_result["kernel_launches_by_passes"] != {0: 0, 1: 0, 2: 0, 3: 0,
+                                                                p: 2 * 2048}):
+            raise AssertionError(f"main path at {p} passes launched {others}, "
+                                 f"{tier_result['kernel_launches_by_passes']}")
+        if tier_result["max_l1_err_px"] != 0:
+            raise AssertionError(f"main path at {p} passes max_l1_err_px "
+                                 f"{tier_result['max_l1_err_px']} != 0")
+        fps_tiers[f"{p}pass"] = tier_result["value"]
+        launches_by_tier[f"{p}pass"] = tier_result["kernel_launches_by_passes"][p]
+        print(f"main path at {p} passes ({tier_result['tier']}): {tier_result['value']:.1f} "
+              f"frames/s, {tier_result['ms_per_frame']:.5f} ms/frame, 0 px, "
+              f"{tier_result['kernel_launches']} launches of the {p}-pass K1 only, on {smi}")
+    print(f"main path frames/s by tier: {json.dumps(fps_tiers)}")
+
+    # Phase 19: serving at 1 pass, serve_streams over phase 7's 8 streams,
+    # counters reset just before: 0 px, each stream equal to track_video_mega
+    # at 1 pass on it alone, only the 1-pass K2 launched.
+    reset_counts()
+    t0 = time.perf_counter()
+    _, served1 = serve_streams([iter(frames[o + 1 : o + 1 + n_]) for o, n_ in zip(offsets, lengths)],
+                               starts, frames.shape[1:], config, chunk_size=chunk_size,
+                               highest=False, score_passes=1)
+    serve1_s = time.perf_counter() - t0
+    if (mega_track_chunk.launches or mega_track_chunk_objects.launches
+            or mega_track_chunk_multi.launches != mega_track_chunk_multi.launches_by_tier[1]
+            or mega_track_chunk_multi.launches != serve_launches):
+        raise AssertionError(f"1-pass serving launched {counts()}, "
+                             f"{mega_track_chunk_multi.launches_by_tier}")
+    for s_, (o, n_) in enumerate(zip(offsets, lengths)):
+        if stream_err_px(spec, o, served1[s_].bbox) != 0:
+            raise AssertionError(f"1-pass stream {s_} is off the ground truth")
+        _, alone = track_video_mega(frames[o + 1 : o + 1 + n_], unstack_state(starts, s_),
+                                    config, chunk_size=chunk_size, highest=False, score_passes=1)
+        compare_outputs(f"1-pass stream {s_}", served1[s_], alone)
+    print(f"serving at 1 pass: 8 streams, {total} frames in {serve1_s:.3f} s: "
+          f"{total / serve1_s:.1f} frames/s aggregate; every stream 0 px and equal to "
+          f"track_video_mega at 1 pass alone; {serve_launches} launches of the 1-pass K2 only")
+
+    # Phase 20: K4 and K5 at 3 passes against their plain versions; the
+    # pallas_fast engine path, track_stream over the bench clip (0 px, the
+    # 3-pass K5 once a frame and nothing else); pvot-torch --fast (the
+    # torch-ops engine at 3 passes: no kernel) on its synthetic clip.
+    rng3 = np.random.default_rng(13)
+    arg3_err = check_k5(dev, (spec, frames), rng3, passes=3)
+    map3_err = check_k4(dev, rng3, highest=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, fast_out = track_stream(iter(frames[1 : n_main + 1]), state, frames.shape[1:], config,
+                               backend="pallas_fast", chunk_size=32)
+    fast_s = time.perf_counter() - t0
+    expect_counts("track_stream(pallas_fast)", K5=n_main)
+    if ncc_region_argmax_pallas.launches_by_tier[3] != n_main:
+        raise AssertionError(f"pallas_fast launched K5 {ncc_region_argmax_pallas.launches_by_tier}")
+    if max_l1_err_px(spec, fast_out.bbox) != 0:
+        raise AssertionError("track_stream(pallas_fast) is off the ground truth")
+    fast_argmax_launches = ncc_region_argmax_pallas.launches_by_tier[3]
+    n_cli = 512
+    fspec = SyntheticSpec(width=1280, height=720, num_frames=n_cli + 1)
+    fx, fy, fw, fh = target_bbox(fspec, 0)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["--synthetic", f"1280x720x{n_cli + 1}", "--first", "--roi",
+                   f"{fx},{fy},{fw},{fh}", "--fast", "--device", "cuda", "--no-display",
+                   "--trajectory-out", traj])
+    cli_fast_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"pvot-torch --fast exited {rc}")
+    expect_counts("pvot-torch --fast")
+    with open(traj) as f:
+        boxes = np.array([json.loads(line)["bbox"] for line in f], np.int32)
+    if len(boxes) != n_cli or max_l1_err_px(fspec, boxes) != 0:
+        raise AssertionError("pvot-torch --fast is off the ground truth")
+    arg3_call = time_ms(lambda: region_argmax_lanes(gframe, templ0, tm0, ts0, lane5, (121, 121),
+                                                    3), 50)
+    arg3_ms = profiled(lambda: [region_argmax_lanes(gframe, templ0, tm0, ts0, lane5, (121, 121), 3)
+                                for _ in range(50)], "ncc_kernel")[0] or arg3_call
+    arg3_plain = time_ms(lambda: region_argmax_lanes_reference(gframe, templ0, tm0, ts0, lane5,
+                                                               (121, 121), 3), 3)
+    arg3_bound, arg3_by = bound_ms(arg_fma / n_main, 200 * 200 + 4 * 6400 + 12, 3)
+    map3_ms = profiled(lambda: [ncc_map_lanes(bframe, bstate.template, b_tm, b_ts, [(bx0, by0)],
+                                              (321, 321), 3) for _ in range(10)],
+                       "ncc_kernel")[0] or time_ms(lambda: ncc_map_lanes(
+                           bframe, bstate.template, b_tm, b_ts, [(bx0, by0)], (321, 321), 3), 10)
+    map3_plain = time_ms(lambda: ncc_map_lanes_reference(bframe, bstate.template, b_tm, b_ts,
+                                                         [(bx0, by0)], (321, 321), 3), 1)
+    map3_bound, map3_by = bound_ms(321 * 321 * 160 * 160, 480 * 480 + 4 * (25600 + 321 * 321), 3)
+    map_region_ms = profiled(lambda: [ncc_map_lanes(bframe, bstate.template, b_tm, b_ts,
+                                                    [(bx0, by0)], (321, 321)) for _ in range(10)],
+                             "ncc_kernel")[0] or b_gated_ms
+    print(f"K5 3-pass local frame 720p/80/r60: kernel {arg3_ms:.5f} ms, plain {arg3_plain:.5f}, "
+          f"bound {arg3_bound:.6f} ({arg3_by}) [f32 {arg_ms:.5f}]; K4 3-pass region 321x321 "
+          f"at 1080p/160: kernel {map3_ms:.4f} ms, plain {map3_plain:.4f}, bound "
+          f"{map3_bound:.5f} ({map3_by}) [f32 {map_region_ms:.4f}]; track_stream(pallas_fast) "
+          f"{n_main} frames in {fast_s:.3f} s ({n_main / fast_s:.1f} frames/s), 0 px, "
+          f"{n_main} 3-pass K5 launches and no other; pvot-torch --fast {n_cli} frames in "
+          f"{cli_fast_s:.3f} s (synthesis included), 0 px, no kernel launched")
+
+    # Phase 21: the batch cadence.  track_video_mega(batch=4) over 2047
+    # frames of the bench clip (chunks of 512; the last, of 511, leaves a
+    # 3-frame tail), counters reset just before; launches: a score and a
+    # commit per batch and one look-ahead launch for the tail.  As in phase
+    # 14, the batch-final frames equal the plain engine over those frames
+    # under the contract, and every other row is the look-ahead row: the
+    # pre-batch bbox, score -1, not updated, not global.
+    n_batch = 2047
+    n_full = n_batch // 4 * 4
+    reset_counts()
+    _, bm_out = track_video_mega(staged[:n_batch], state, config, chunk_size=512, batch=4)
+    want_launches = sum(chunk_launches(min(512, n_batch - c0), 4) for c0 in range(0, n_batch, 512))
+    expect_counts("track_video_mega(batch=4)", K1=want_launches)
+    compare_outputs("track_video_mega(batch=4), batch-final frames, vs the plain engine",
+                    StepOutput(*(v[3:n_full:4] for v in bm_out)),
+                    plain_video(frames[4 : n_full + 1 : 4], state, config))
+    held = np.array([i for i in range(n_batch) if i % 4 != 3 or i >= n_full])
+    pre_batch = np.concatenate([np.asarray(start_box)[None], bm_out.bbox])[
+        np.minimum(held // 4 * 4, n_full)]
+    if not (np.array_equal(bm_out.bbox[held], pre_batch) and (bm_out.score[held] == -1.0).all()
+            and not bm_out.updated[held].any() and not bm_out.used_global[held].any()):
+        raise AssertionError("batch 4: a held or tail row is not the look-ahead row")
+    batch_ms = time_ms(lambda: track_video_mega(staged[:n_batch], state, config, chunk_size=512,
+                                                batch=4), 2) / n_batch
+    print(f"batch mode n=4 on the chunk kernel: {n_batch} frames, {want_launches} K1 launches "
+          f"({want_launches / n_batch:.4f} a frame), batch-final frames equal to the plain "
+          f"engine, the held frames and the 3-frame tail look-ahead rows; {batch_ms:.5f} ms a "
+          f"frame")
+
+    def tier_fields(tiers):
+        return {f"{p}pass": v for p, v in tiers.items()}
+
+    # Phase 22.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -1070,6 +1390,14 @@ def main() -> int:
             "frame_1080p_160_r160_local_bound_ms": b_bound,
             "frame_1080p_160_global_ms": bg_ms,
             "frame_1080p_160_global_bound_ms": bg_bound,
+            "tiers": tier_fields(k1_tiers),
+            "tiers_unit": "ms per local frame (720p/80/r60) and per global frame, bound at the "
+                          "bf16 tensor-core peak times passes",
+            "main_path_fps_by_tier": fps_tiers,
+            "launches_by_tier_main_path": launches_by_tier,
+            "batch4_launches": want_launches,
+            "batch4_frames": n_batch,
+            "batch4_ms_per_frame": batch_ms,
         },
         {
             "name": "mega_track_chunk_multi",
@@ -1085,6 +1413,12 @@ def main() -> int:
             "library_ms": None,
             "ms_unit": "per frame step of 4 streams over the same 48 steps, 720p/80/r60",
             "s8_one_global_ms_per_step": k2_s8_global_ms,
+            "s8_all_local_ms_per_step": k2_f32_s8,
+            "s8_all_local_conv2d_corr_ms": k2_f32_s8_conv,
+            "tiers": tier_fields(k2_tiers),
+            "tiers_unit": "ms per frame step of 8 local streams, 720p/80/r60",
+            "serve_1pass_fps": total / serve1_s,
+            "serve_1pass_launches": serve_launches,
         },
         {
             "name": "mega_track_chunk_objects",
@@ -1112,6 +1446,8 @@ def main() -> int:
             "k8_one_global_ms_per_step": k3_g8_ms,
             "serve_objects_fps": n_serve / serve_o_s,
             "device_path_fps": dev_fps,
+            "tiers": tier_fields(k3_tiers),
+            "tiers_unit": "ms per frame step of 8 local objects, 720p/80/r60",
         },
         {
             "name": "ncc_map_pallas",
@@ -1131,6 +1467,12 @@ def main() -> int:
             "conv2d_corr_ms": map_conv,
             "ms_unit": "per global frame (641x1201 map), 720p/80",
             "region_1080p_160_r160_ms": b_gated_ms,
+            "region_1080p_160_r160_device_ms": map_region_ms,
+            "tiers": {"3pass": dict(max_abs_err=map3_err, ms=map3_ms, plain_ms=map3_plain,
+                                    bound_ms=map3_bound, bound_by=map3_by,
+                                    conv2d_corr_ms=None)},
+            "tiers_unit": "ms per 321x321 region at 1080p/160/r160 (the pallas_fast region "
+                          "path); full maps stay float32",
         },
         {
             "name": "ncc_region_argmax_pallas",
@@ -1153,6 +1495,13 @@ def main() -> int:
             "device_frames_fps": n_main / engine_s,
             "mega_fps_same_clip": n_main / mega_s,
             "mega_host_reads_per_frame": mega_reads,
+            "tiers": {"3pass": dict(max_abs_err=arg3_err, ms=arg3_ms, call_ms=arg3_call,
+                                    plain_ms=arg3_plain, bound_ms=arg3_bound, bound_by=arg3_by,
+                                    conv2d_corr_ms=k1_bf16_conv,
+                                    launches=fast_argmax_launches,
+                                    main_path_fps=n_main / fast_s)},
+            "tiers_unit": "ms per local frame (121x121 region), 720p/80/r60; launches and "
+                          "frames/s on track_stream(pallas_fast) over the bench clip",
         },
     ]}))
     print(smi)

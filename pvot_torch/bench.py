@@ -3,8 +3,12 @@
 The clip, geometry and correctness check are bench.py's: the synthetic
 SyntheticSpec(1280, 720, 2049 frames, 80x80, seed=1), the target's bbox at
 frame 0 as the initial state, 2048 tracked frames in chunks of 512, and
-max_l1_err_px == 0 against the ground-truth bbox.  The port runs the f32
-tier (bench.py's `mega_highest=True` analog).
+max_l1_err_px == 0 against the ground-truth bbox.  By default the port runs
+the float32 tier (bench.py's `mega_highest=True`); `--fast` runs the bf16
+tier of `--score-passes P` (3 unless given; bench.py's headline is
+`mega_highest=False, mega_score_passes=1`, bench.py:78-88) on the main-path,
+streams and objects lines.  Each line's `tier` names its tier as bench.py
+does (bench.py:233-238).
 
 Run with `python -m pvot_torch.bench`; it prints one JSON line, then one for
 `--streams S` (S streams cut from the clip), one for `--objects K` (K
@@ -31,41 +35,68 @@ import time
 import numpy as np
 import torch
 
+from pvot_torch.ops.ncc_reference import cli_tier, tier_name
+
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
-# outside the tensor cores, the rate the kernels' correlation runs at, and
-# HBM3.
+# outside the tensor cores, the rate of the float32 tier's correlation;
+# dense bf16 on the tensor cores, the rate of the bf16 tiers' passes; HBM3.
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def scored_positions(start_bbox, bboxes, used_global, frame_shape, templ_shape,
-                     config) -> int:
-    """Score-map positions one tracker's frames need: each frame's clamped
-    local window around the box it starts from, or its whole map on a frame
+def scored_windows(start_bbox, bboxes, used_global, frame_shape, templ_shape,
+                   config) -> list:
+    """The frame pixels each of one tracker's frames reads, as (x0, y0, w, h):
+    its clamped local window around the box it starts from, the template's
+    extent past the last position included, or the whole frame on a frame
     whose argmax ran global.  bboxes (F, 4) are the boxes after each frame,
     used_global (F,) the frames' flags."""
     from pvot_torch.ops.search import local_window_bounds
 
     (h, w), (th, tw) = frame_shape, templ_shape
     out_h, out_w = h - th + 1, w - tw + 1
-    total = 0
+    out = []
     bx, by, bw, bh = (int(v) for v in start_bbox)
     for box, glob in zip(np.asarray(bboxes).tolist(), np.asarray(used_global).tolist()):
         if glob:
-            total += out_h * out_w
+            out.append((0, 0, w, h))
         else:
             b = local_window_bounds(bx + bw // 2, by + bh // 2, tw, th, out_w, out_h,
                                     config.search_radius_x, config.search_radius_y)
-            total += (b.max_tx - b.min_tx + 1) * (b.max_ty - b.min_ty + 1)
+            out.append((b.min_tx, b.min_ty, b.max_tx - b.min_tx + tw, b.max_ty - b.min_ty + th))
         bx, by, bw, bh = (int(v) for v in box)
-    return total
+    return out
 
 
-def bound_ms(fma: float, n_bytes: float) -> tuple:
+def scored_positions(start_bbox, bboxes, used_global, frame_shape, templ_shape,
+                     config) -> int:
+    """Score-map positions one tracker's frames need (scored_windows' windows
+    less the template's extent)."""
+    th, tw = templ_shape
+    return sum((ww - tw + 1) * (wh - th + 1) for _, _, ww, wh in scored_windows(
+        start_bbox, bboxes, used_global, frame_shape, templ_shape, config))
+
+
+def union_pixels(rects) -> int:
+    """Pixels covered by any of the rectangles (x0, y0, w, h): what lanes
+    that share one frame read of it."""
+    xs = sorted({v for x, _, w, _ in rects for v in (x, x + w)})
+    ys = sorted({v for _, y, _, h in rects for v in (y, y + h)})
+    return sum((x1 - x0) * (y1 - y0)
+               for x0, x1 in zip(xs, xs[1:]) for y0, y1 in zip(ys, ys[1:])
+               if any(x <= x0 and x1 <= x + w and y <= y0 and y1 <= y + h
+                      for x, y, w, h in rects))
+
+
+def bound_ms(fma: float, n_bytes: float, passes: int = 0) -> tuple:
     """(least milliseconds the card could take, what bounds it): the larger of
-    2 * fma FP32 operations at the FP32 peak and n_bytes at the memory rate."""
-    t_ops, t_bytes = 2.0 * fma / FP32_FLOPS, n_bytes / HBM_BYTES_PER_S
+    the correlation's operations at their peak, 2 * fma FP32 operations at
+    the FP32 peak (passes 0) or passes * 2 * fma bf16 operations at the bf16
+    tensor-core peak, and n_bytes at the memory rate."""
+    t_ops = 2.0 * fma * passes / BF16_FLOPS if passes else 2.0 * fma / FP32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -113,11 +144,11 @@ def max_l1_err_px(spec, bbox: np.ndarray) -> int:
 
 
 def run_bench(num_frames: int = 2048, chunk_size: int = 512, passes: int = 5,
-              clip=None) -> dict:
+              clip=None, highest: bool = True, score_passes: int = 3) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("pvot_torch.bench needs a CUDA device")
     from pvot_torch.config import TrackerConfig
-    from pvot_torch.ops.ncc_mega import mega_track_chunk
+    from pvot_torch.ops.ncc_mega import mega_track_chunk, reset_launches
     from pvot_torch.tracker.mega import track_video_mega
 
     dev = torch.device("cuda", 0)
@@ -127,9 +158,11 @@ def run_bench(num_frames: int = 2048, chunk_size: int = 512, passes: int = 5,
     staged = torch.from_numpy(frames[1 : 1 + num_frames]).to(dev)
     torch.cuda.synchronize()
 
-    mega_track_chunk.launches = 0
-    _, out = track_video_mega(staged, state, config, chunk_size=chunk_size)
+    tier = dict(highest=highest, score_passes=score_passes)
+    reset_launches(mega_track_chunk)
+    _, out = track_video_mega(staged, state, config, chunk_size=chunk_size, **tier)
     launches = mega_track_chunk.launches
+    by_tier = dict(mega_track_chunk.launches_by_tier)
     err = max_l1_err_px(spec, out.bbox)
 
     times_ms = []
@@ -137,7 +170,7 @@ def run_bench(num_frames: int = 2048, chunk_size: int = 512, passes: int = 5,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        _, again = track_video_mega(staged, state, config, chunk_size=chunk_size)
+        _, again = track_video_mega(staged, state, config, chunk_size=chunk_size, **tier)
         end.record()
         end.synchronize()
         times_ms.append(start.elapsed_time(end))
@@ -156,11 +189,12 @@ def run_bench(num_frames: int = 2048, chunk_size: int = 512, passes: int = 5,
         "chunk_size": chunk_size,
         "max_l1_err_px": err,
         "all_updated": bool(out.updated.all()),
-        "tier": "f32",
+        "tier": tier_name(highest, score_passes),
         "gpu": torch.cuda.get_device_name(0),
         "gpu_smi": gpu,
         "power_limit_w": watts,
         "kernel_launches": launches,
+        "kernel_launches_by_passes": by_tier,
     }
 
 
@@ -192,7 +226,8 @@ def stream_err_px(spec, offset: int, bbox: np.ndarray) -> int:
 
 
 def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
-                      passes: int = 3, serve_chunk: int = 64, clip=None) -> dict:
+                      passes: int = 3, serve_chunk: int = 64, clip=None, highest: bool = True,
+                      score_passes: int = 3) -> dict:
     """S streams of `length` frames cut at spread offsets from the bench clip
     (no second clip is generated), each from its ground-truth box.
 
@@ -222,8 +257,9 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
                                px * (offsets[0] + 1))
     torch.cuda.synchronize()
 
+    tier = dict(highest=highest, score_passes=score_passes)
     mega_track_chunk_multi.launches = 0
-    _, out = track_streams_mega(videos, states, config, chunk_size=chunk_size)
+    _, out = track_streams_mega(videos, states, config, chunk_size=chunk_size, **tier)
     launches = mega_track_chunk_multi.launches
     errs = [stream_err_px(spec, o, out.bbox[:, s]) for s, o in enumerate(offsets)]
     times_ms = []
@@ -231,7 +267,7 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        _, again = track_streams_mega(videos, states, config, chunk_size=chunk_size)
+        _, again = track_streams_mega(videos, states, config, chunk_size=chunk_size, **tier)
         end.record()
         end.synchronize()
         times_ms.append(start.elapsed_time(end))
@@ -242,7 +278,8 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
     timings: list = []
     t0 = time.perf_counter()
     _, served = serve_streams([iter(frames[o + 1 : o + 1 + length]) for o in offsets],
-                              states, (h, w), config, chunk_size=serve_chunk, timings=timings)
+                              states, (h, w), config, chunk_size=serve_chunk, timings=timings,
+                              **tier)
     serve_s = time.perf_counter() - t0
     serve_errs = [stream_err_px(spec, o, served[s].bbox) for s, o in enumerate(offsets)]
     if any(not np.array_equal(served[s].bbox, out.bbox[:, s]) for s in range(n_streams)):
@@ -268,7 +305,7 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
         "serve_chunk": serve_chunk,
         "serve_chunks": len(timings),
         "serve_max_l1_err_px": max(serve_errs),
-        "tier": "f32",
+        "tier": tier_name(highest, score_passes),
         "gpu": torch.cuda.get_device_name(0),
         "gpu_smi": gpu,
         "power_limit_w": watts,
@@ -276,7 +313,8 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
 
 
 def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 512,
-                      passes: int = 3, serve_chunk: int = 64, clip=None) -> dict:
+                      passes: int = 3, serve_chunk: int = 64, clip=None, highest: bool = True,
+                      score_passes: int = 3) -> dict:
     """K trackers over the bench clip, all started on its ground-truth box so
     that every lane is checked against the ground truth
     (benchmarks/suite.py:813 `bench_multi_object_mega`).
@@ -303,8 +341,9 @@ def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 
     staged = torch.from_numpy(frames[1 : 1 + num_frames]).to(dev)
     torch.cuda.synchronize()
 
+    tier = dict(highest=highest, score_passes=score_passes)
     mega_track_chunk_objects.launches = 0
-    _, out = track_objects_mega(staged, states, config, chunk_size=chunk_size)
+    _, out = track_objects_mega(staged, states, config, chunk_size=chunk_size, **tier)
     launches = mega_track_chunk_objects.launches
     errs = [max_l1_err_px(spec, out.bbox[:, k]) for k in range(n_objects)]
     times_ms = []
@@ -312,7 +351,7 @@ def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        _, again = track_objects_mega(staged, states, config, chunk_size=chunk_size)
+        _, again = track_objects_mega(staged, states, config, chunk_size=chunk_size, **tier)
         end.record()
         end.synchronize()
         times_ms.append(start.elapsed_time(end))
@@ -323,16 +362,20 @@ def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 
     timings: list = []
     t0 = time.perf_counter()
     _, served = serve_objects(iter(frames[1 : 1 + num_frames]), states, (h, w), config,
-                              chunk_size=serve_chunk, timings=timings)
+                              chunk_size=serve_chunk, timings=timings, **tier)
     serve_s = time.perf_counter() - t0
     if not np.array_equal(served.bbox, out.bbox):
         raise RuntimeError("serve_objects and track_objects_mega disagree")
     th, tw = one.template.shape
     start_box = [int(v) for v in torch.stack(list(one.bbox)).tolist()]
-    fma = th * tw * sum(scored_positions(start_box, out.bbox[:, k], out.used_global[:, k],
-                                         (h, w), (th, tw), config) for k in range(n_objects))
-    n_bytes = num_frames * h * w + n_objects * (2 * th * tw * 4 + num_frames * 40)
-    bound, bound_by = bound_ms(fma, n_bytes)
+    windows = [scored_windows(start_box, out.bbox[:, k], out.used_global[:, k], (h, w),
+                              (th, tw), config) for k in range(n_objects)]
+    fma = th * tw * sum((ww - tw + 1) * (wh - th + 1)
+                        for lane in windows for _, _, ww, wh in lane)
+    # The objects share each frame: it is read once, the union of their windows.
+    n_bytes = (sum(union_pixels(rects) for rects in zip(*windows))
+               + n_objects * (2 * th * tw * 4 + num_frames * 40))
+    bound, bound_by = bound_ms(fma, n_bytes, 0 if highest else score_passes)
     gpu, watts = gpu_identity()
     fps = num_frames / (med / 1000.0)
     return {
@@ -354,7 +397,7 @@ def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 
         "serve_s": serve_s,
         "serve_chunk": serve_chunk,
         "serve_chunks": len(timings),
-        "tier": "f32",
+        "tier": tier_name(highest, score_passes),
         "gpu": torch.cuda.get_device_name(0),
         "gpu_smi": gpu,
         "power_limit_w": watts,
@@ -414,7 +457,9 @@ def run_bench_engine(backend: str, num_frames: int = 2048, passes: int = 3,
         "k4_launches_per_frame": k4 / num_frames,
         "k5_launches_per_frame": k5 / num_frames,
         "host_reads_per_frame": reads / num_frames,
-        "tier": "f32",
+        # The fast engines score their regions at 3 bf16 passes, their global
+        # maps in float32.
+        "tier": tier_name(backend not in ("fast", "xla_fast", "pallas_fast")),
         "gpu": torch.cuda.get_device_name(0),
         "gpu_smi": gpu,
         "power_limit_w": watts,
@@ -431,24 +476,32 @@ def main(argv=None) -> None:
                    help="also track K objects over the clip and print their line")
     p.add_argument("--backend", default=None, metavar="NAME",
                    help="also track the clip on this per-frame engine and print its line")
+    p.add_argument("--fast", action="store_true",
+                   help="the chunk kernels' bf16 score tier (main-path, streams and objects "
+                        "lines)")
+    p.add_argument("--score-passes", type=int, default=None, choices=(1, 2, 3),
+                   help="bf16 passes of the --fast tier (default 3); needs --fast")
     args = p.parse_args(argv)
+    if args.score_passes is not None and not args.fast:
+        p.error("--score-passes sets the passes of the --fast tier: it needs --fast")
+    tier = cli_tier(args.fast, args.score_passes)
     t0 = time.perf_counter()
     clip = bench_clip()
-    result = run_bench(clip=clip)
+    result = run_bench(clip=clip, **tier)
     result["wall_s"] = time.perf_counter() - t0
     print(json.dumps(result))
     if result["max_l1_err_px"] != 0:
         raise SystemExit("tracked trajectory is off the ground truth")
     if args.streams > 0:
         t0 = time.perf_counter()
-        multi = run_bench_streams(args.streams, clip=clip)
+        multi = run_bench_streams(args.streams, clip=clip, **tier)
         multi["wall_s"] = time.perf_counter() - t0
         print(json.dumps(multi))
         if multi["max_l1_err_px"] != 0 or multi["serve_max_l1_err_px"] != 0:
             raise SystemExit("a tracked stream is off the ground truth")
     if args.objects > 0:
         t0 = time.perf_counter()
-        objects = run_bench_objects(args.objects, clip=clip)
+        objects = run_bench_objects(args.objects, clip=clip, **tier)
         objects["wall_s"] = time.perf_counter() - t0
         print(json.dumps(objects))
         if objects["max_l1_err_px"] != 0:

@@ -1,22 +1,25 @@
 """pvot-torch: track one video on one card (the port of pvot/cli/main.py's
 headless surface).
 
-    pvot-torch [video] [--cpu|--shared|--const|--const_tiled|--mega|--auto]
-               [--batch=N] [--record] [--first] --roi X,Y,W,H
+    pvot-torch [video] [--cpu|--shared|--const|--const_tiled|--mega|--auto|
+               --fast|--pallas_fast] [--batch=N] [--record] [--first]
+               --roi X,Y,W,H
 
 plus --start-frame, --output, --max-frames, --synthetic WxHxF, --strategy,
 --chunk-size, the radius and confidence knobs, --no-global-search,
 --stage-timing, --trajectory-out, --checkpoint-out, --resume, and --device
 (default cuda; cpu runs the kernels' plain versions), as pvot-torch-serve
 has it.  A mode flag resolves through pvot_torch.ops.backends (the default,
-"cuda", is the reference's naive-kernel mode: the `xla` engine); an engine
-flag composes with --batch=N as in the JAX CLI.  Output naming matches the
-reference (output/<base>_<mode>[_<batch>]<ext>).
+"cuda", is the reference's naive-kernel mode: the `xla` engine; --fast and
+--pallas_fast are the fast engines, their region scores at 3 bf16 passes);
+an engine flag composes with --batch=N as in the JAX CLI, and --mega with
+--batch=N runs the chunk kernel's in-kernel cadence.  Output naming matches
+the reference (output/<base>_<mode>[_<batch>]<ext>).
 
-Not ported, each exits with code 2 and names its ROADMAP item: --fast and
---pallas_fast (A6), --host (A11), the GUI ROI selection that the JAX CLI
-opens without --roi, and its live display window (A11).  --record needs
-OpenCV, which the card's machine does not have.
+Not ported, each exits with code 2 and names its ROADMAP item: --host
+(A11), the GUI ROI selection that the JAX CLI opens without --roi, and its
+live display window (A11).  --record needs OpenCV, which the card's machine
+does not have.
 """
 
 from __future__ import annotations
@@ -39,11 +42,11 @@ _MODE_FLAGS = {
     "--const_tiled": "const_tiled",
     "--mega": "mega",
     "--auto": "auto",
+    "--fast": "fast",
+    "--pallas_fast": "pallas_fast",
 }
 # Mode flags of the JAX CLI that the port does not have yet.
 _NOT_PORTED = {
-    "--fast": "the fast score tiers (ROADMAP A6)",
-    "--pallas_fast": "the fast score tiers (ROADMAP A6)",
     "--host": "the host engine, pvot/models/host.py (ROADMAP A11)",
 }
 

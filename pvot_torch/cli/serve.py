@@ -13,14 +13,17 @@ through the multi-object CUDA kernel (serve_objects), mixed ROI sizes in the
 bucketed layout (init_multi_state_bucketed); a K-object --resume checkpoint
 over one stream resumes it.
 
-What the JAX front end has and the port not yet exits with code 2 and names
-its ROADMAP item: --fast and --score-passes (A6), --devices (A12),
+--fast serves at the kernels' bf16 score tier of --score-passes (3 unless
+given), as pvot-serve does; --score-passes without --fast exits with code 2
+(pvot-serve ignores it there).  What the JAX front end has and the port not
+yet exits with code 2 and names its ROADMAP item: --devices (A12),
 --scan-backend (A15).  Video files need OpenCV, which the card's machine does
 not have: there, serve --synthetic streams.
 
 Examples:
   pvot-torch-serve cam0.mp4 cam1.mp4 cam2.mp4 --roi 600,320,80,80
   pvot-torch-serve --synthetic 1280x720x300 --streams 8
+  pvot-torch-serve --synthetic 1280x720x300 --streams 8 --fast --score-passes 1
   pvot-torch-serve --synthetic 1280x720x300 --streams 1 --roi 600,320,80,80 --roi 100,90,64,48
 """
 
@@ -37,8 +40,6 @@ import numpy as np
 
 # Options of pvot-serve that the port does not have yet, and their ROADMAP item.
 _NOT_PORTED = {
-    "--fast": "the fast score tiers (ROADMAP A6)",
-    "--score-passes": "the fast score tiers (ROADMAP A6)",
     "--devices": "serving across cards (ROADMAP A12)",
     "--scan-backend": "serving over the scan engines (ROADMAP A15)",
 }
@@ -68,6 +69,16 @@ def parse_args(argv: List[str]):
         "--pipeline-depth", type=int, default=2,
         help="chunks in flight before the oldest one's records are read "
              "(1 = synchronous)",
+    )
+    p.add_argument(
+        "--fast", action="store_true",
+        help="score at the kernels' bf16 tier (see --score-passes); like every fast "
+             "engine, its trajectory equals the float32 one only as far as a run shows",
+    )
+    p.add_argument(
+        "--score-passes", type=int, default=None, choices=(1, 2, 3),
+        help="bf16 passes of the --fast tier: 3 = hi/lo (default), 2 and 1 trade "
+             "score precision for speed; needs --fast",
     )
     p.add_argument("--search-radius", type=int, default=None)
     p.add_argument("--max-frames", type=int, default=0)
@@ -121,6 +132,13 @@ def _limit(it, n: int):
         yield frame
 
 
+def _tier(args) -> dict:
+    """serve_streams / serve_objects keywords of the score tier."""
+    from pvot_torch.ops.ncc_reference import cli_tier
+
+    return cli_tier(args.fast, args.score_passes)
+
+
 def _config(args):
     from pvot_torch.config import TrackerConfig
 
@@ -135,6 +153,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             print(f"{flag}: {what} is not ported to pvot_torch yet", file=sys.stderr)
             return 2
+    if args.score_passes is not None and not args.fast:
+        print("--score-passes sets the passes of the --fast tier: it needs --fast",
+              file=sys.stderr)
+        return 2
     if args.resume and args.roi:
         print("--roi and --resume are mutually exclusive: templates and "
               "boxes come from the checkpoint", file=sys.stderr)
@@ -299,18 +321,20 @@ def _run_objects(args, feed, states, frame_shape, closers) -> int:
     """K trackers over one stream (pvot/cli/serve.py:347 `_run_objects`):
     pvot_torch.io.serving.serve_objects."""
     from pvot_torch.io.serving import serve_objects
+    from pvot_torch.ops.ncc_reference import tier_name
     from pvot_torch.utils.checkpoint import save_state
 
     k = int(states.t_mean.shape[0])
     th = int(states.bbox_h.max())  # the bucket's extent, when the sizes are mixed
     tw = int(states.bbox_w.max())
     print(f"Serving 1 stream x {k} objects at {frame_shape[1]}x{frame_shape[0]}, "
-          f"template {tw}x{th}, chunk {args.chunk_size}, device {args.device}")
+          f"template {tw}x{th}, chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, "
+          f"device {args.device}")
     t0 = time.perf_counter()
     try:
         final, out = serve_objects(
             feed, states, frame_shape, _config(args), chunk_size=args.chunk_size,
-            pipeline_depth=args.pipeline_depth, devices=[args.device],
+            pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args),
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if the stream raises mid-serve
@@ -346,16 +370,18 @@ def _run_objects(args, feed, states, frame_shape, closers) -> int:
 
 def _run_serving(args, feeds, states, frame_shape, closers) -> int:
     from pvot_torch.io.serving import serve_streams
+    from pvot_torch.ops.ncc_reference import tier_name
     from pvot_torch.utils.checkpoint import save_state
 
     th, tw = states.template.shape[-2:]
     print(f"Serving {len(feeds)} streams at {frame_shape[1]}x{frame_shape[0]}, "
-          f"template {tw}x{th}, chunk {args.chunk_size}, device {args.device}")
+          f"template {tw}x{th}, chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, "
+          f"device {args.device}")
     t0 = time.perf_counter()
     try:
         final, outs = serve_streams(
             feeds, states, frame_shape, _config(args), chunk_size=args.chunk_size,
-            pipeline_depth=args.pipeline_depth, devices=[args.device],
+            pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args),
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if a stream raises mid-serve
@@ -372,17 +398,18 @@ def _run_serving(args, feeds, states, frame_shape, closers) -> int:
 
 def _run_serving_grouped(args, feeds, states_list, frame_shapes, closers) -> int:
     from pvot_torch.io.serving import serve_streams_grouped
+    from pvot_torch.ops.ncc_reference import tier_name
     from pvot_torch.utils.checkpoint import save_state
 
     shapes = sorted({(fs, tuple(st.template.shape)) for fs, st in zip(frame_shapes, states_list)})
     groups = ", ".join(f"{fw}x{fh}/t{tw}x{th}" for (fh, fw), (th, tw) in shapes)
     print(f"Serving {len(feeds)} streams in {len(shapes)} geometry groups ({groups}), "
-          f"chunk {args.chunk_size}, device {args.device}")
+          f"chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, device {args.device}")
     t0 = time.perf_counter()
     try:
         finals, outs = serve_streams_grouped(
             feeds, states_list, frame_shapes, _config(args), chunk_size=args.chunk_size,
-            pipeline_depth=args.pipeline_depth, devices=[args.device],
+            pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args),
         )
         elapsed = time.perf_counter() - t0
     finally:

@@ -2,8 +2,9 @@
 // port of pvot/ops/ncc_mega.py `_mega_kernel` (:170) with `_scored_frame_body`
 // (:496), `_shear_score_tiles` (:318) and `_lex_better` (:487), entries
 // `mega_track_chunk` (:818, K1), `mega_track_chunk_multi` (:966, K2) and
-// `mega_track_chunk_objects` (:1115, K3), at their f32 tier (highest=True,
-// inkernel_global=True, batch=1).
+// `mega_track_chunk_objects` (:1115, K3), with inkernel_global=True, at
+// every score tier (highest=True, or highest=False with score_passes 1, 2,
+// 3) and every look-ahead batch cadence (batch >= 1).
 //
 // Lanes.  The device code is written for S independent lanes (streams or
 // objects): lane s has its own frames (at s * frame_stride), template, state
@@ -68,9 +69,43 @@
 // streams share each launch, so S local frames fill the card that one leaves
 // idle.  A global frame scores 641 x 1201 positions, about 4.9 G FMA, and is
 // bound by FP32 issue and shared-memory loads on all SMs.  Measured times are
-// in PERF.md.  Later work: tensor cores (wgmma, split-precision) for the
-// correlation, TMA staging, one persistent launch per chunk in place of 2F
-// launches, and CUDA graphs.
+// in PERF.md.  Later work: wgmma and TMA for the tiers, one persistent
+// launch per chunk in place of 2F launches, and CUDA graphs.
+//
+// Score tiers.  highest=False replaces the bf16 hi/lo split of
+// `_shear_score_tiles` (pvot/ops/ncc_mega.py:384-440), which the TPU kernel
+// runs on local frames (:676) and in the in-kernel global strips (:633)
+// alike, and so does this kernel: score_kernel_tier<..., kPasses> runs the
+// correlation on the tensor cores, with warp-level
+// mma.sync.m16n8k16.bf16 (tiers.cuh row_mma), corr(hi w, hi t) for 1 pass,
+// + corr(hi w, lo t) for 2, + corr(lo w, hi t) for 3.  Per template row a
+// warp computes its whole 8 x 16 tile as window rows x the row's Toeplitz
+// band; the template rows are staged as hi/lo slots when staged, the window
+// rows after their float32 box sums, both in the bytes of the float32 rows
+// (one shared-memory plan for every tier: stage_rows and score_smem_bytes do
+// not see the tier).  Box sums, the epilogue, the EMA and the stats stay
+// float32.  score_kernel, the float32 tier, is the float32 FMA code with
+// its launch bounds as before; the two share score_body.
+// Bound: the bf16 passes at 989 TFLOP/s, 0.19 / 0.38 / 0.57 us for 1 / 2 /
+// 3 passes of a local 720p/80/r60 frame (93.7 M MAC), far below the chain
+// of dependent phases that bounds a local frame today; a global frame
+// (4.93 G MAC) is where the tensor cores can show.  Accumulation: the
+// tensor core's float32 sums are not round-to-nearest, so the fragment
+// restarts from 0 for every template row (ceil((tw + 7) / 16) steps a pass)
+// and each row's sum joins the thread's float32 sums with one
+// round-to-nearest addition; the rows, row shares, halves and chunks add in
+// the float32 kernel's fixed order, so a lane's records are K1's on it
+// alone at every tier, whoever shares the launch.
+//
+// Batch cadence (pvot/ops/ncc_mega.py:262-311).  With batch > 1 only frames
+// t with t % batch == batch - 1 are scored, and a score and a commit launch
+// are made only for them: 2 launches a batch.  The commit also writes the
+// look-ahead records of the batch's earlier frames (the state before it,
+// score -1, no update), and the state's n_valid field holds n_full =
+// (n_valid // batch) * batch, so a cadence frame past it commits nothing and
+// records score -1.  When batch does not divide the chunk, one
+// lookahead_kernel launch writes the records after the last cadence frame:
+// 2 * (F / batch) + (F % batch != 0) launches a chunk.
 //
 // Numerics.  The epilogue, the u8 conversion and the EMA use explicit
 // round-to-nearest intrinsics, so nvcc cannot contract them into FMAs that
@@ -82,7 +117,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tiers.cuh"
+
 namespace {
+
+using pvot_tiers::row_mma;
+using pvot_tiers::split_pack;
+using pvot_tiers::split_rows_in_place;
+using pvot_tiers::tile_output;
 
 constexpr int kTileH = 8;                     // output rows per tile
 constexpr int kTileW = 16;                    // output columns per tile
@@ -289,6 +331,22 @@ __device__ __forceinline__ void stage_template(float* s_tc, const float* src, fl
   }
 }
 
+// stage_template for the tiers (tiers.cuh): each centered value (0 in the padding
+// columns) as its hi/lo slot, in the bytes the float32 rows take.
+__device__ __forceinline__ void stage_template_split(uint32_t* s_tc, const float* src,
+                                                     float t_mean, int rows, int tw, int tw4,
+                                                     int begin, int step) {
+  for (int idx = begin; idx < rows * tw4 / 4; idx += step) {
+    const float4 v = reinterpret_cast<const float4*>(src)[idx];
+    const int j = (4 * idx) % tw4;
+    reinterpret_cast<uint4*>(s_tc)[idx] = make_uint4(
+        j < tw ? split_pack(__fsub_rn(v.x, t_mean)) : 0u,
+        j + 1 < tw ? split_pack(__fsub_rn(v.y, t_mean)) : 0u,
+        j + 2 < tw ? split_pack(__fsub_rn(v.z, t_mean)) : 0u,
+        j + 3 < tw ? split_pack(__fsub_rn(v.w, t_mean)) : 0u);
+  }
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
@@ -318,12 +376,16 @@ __device__ LaneWork lane_work(const int32_t* si, const float* sf, const Params& 
 // registers, and there is no lane table.  kExt: the lanes have extents of
 // their own (K3's bucketed mode; never with kOne); without it every lane has
 // the launch's, as constant over the whole launch as in a one-lane one.
-template <bool kWhole, bool kOne, bool kExt>
-__global__ void __launch_bounds__(kScoreThreads)
-score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
-             const int32_t* __restrict__ si, const float* __restrict__ sf,
-             float* __restrict__ part_val, int32_t* __restrict__ part_yx,
-             float* split_part, int32_t* split_count, Params p, int t) {
+// kPasses: the score tier, 0 for float32 FMAs, else the bf16 passes of
+// row_mma (the template rows and, after the box sums, the window rows held
+// as hi/lo slots in the float32 rows' bytes: one shared-memory plan for
+// every tier).  The body of score_kernel (float32) and score_kernel_tier.
+template <bool kWhole, bool kOne, bool kExt, int kPasses>
+__device__ __forceinline__ void score_body(
+    const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
+    const int32_t* __restrict__ si, const float* __restrict__ sf,
+    float* __restrict__ part_val, int32_t* __restrict__ part_yx, float* split_part,
+    int32_t* split_count, Params p, int t) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Best s_best[kScoreThreads / 32];
   __shared__ int s_last, s_n_items;
@@ -361,7 +423,12 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
       }
       return;
     }
-    if (kWhole) stage_template(s_tc, tpl, one.t_mean, p.th, p.tw, tw4, threadIdx.x, blockDim.x);
+    if constexpr (kWhole && kPasses == 0) {
+      stage_template(s_tc, tpl, one.t_mean, p.th, p.tw, tw4, threadIdx.x, blockDim.x);
+    } else if constexpr (kWhole) {
+      stage_template_split(reinterpret_cast<uint32_t*>(s_tc), tpl, one.t_mean, p.th, p.tw, tw4,
+                           threadIdx.x, blockDim.x);
+    }
   } else {
     if (threadIdx.x < 32) {
       // Warp 0: each lane's mode, window and tiles; two blocks share each
@@ -472,8 +539,14 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
       if (!fresh) __syncthreads();  // the previous unit's readers are done with it
       fresh = false;
       if (tc_lane != l || tc_row != t_row) {
-        stage_template(s_tc, tpl + (static_cast<size_t>(l) * p.th + t_row) * tw4, w.t_mean,
-                       kWhole ? th : u1 - u0, tw, tw4, threadIdx.x, blockDim.x);
+        const float* src = tpl + (static_cast<size_t>(l) * p.th + t_row) * tw4;
+        if constexpr (kPasses == 0) {
+          stage_template(s_tc, src, w.t_mean, kWhole ? th : u1 - u0, tw, tw4, threadIdx.x,
+                         blockDim.x);
+        } else {
+          stage_template_split(reinterpret_cast<uint32_t*>(s_tc), src, w.t_mean,
+                               kWhole ? th : u1 - u0, tw, tw4, threadIdx.x, blockDim.x);
+        }
         tc_lane = l;
         tc_row = t_row;
       }
@@ -502,6 +575,11 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
         s_rs[r * kTileW + xx] = rs;
         s_rq[r * kTileW + xx] = rq;
       }
+      if constexpr (kPasses != 0) {
+        __syncthreads();  // the box sums have read the float32 window rows
+        split_rows_in_place(s_in, in_rows, in_wl, in_w);
+        __syncthreads();
+      }
 
       // ... while each thread correlates 4 neighbouring outputs over its
       // group's share of each half's rows, as far as this unit holds them,
@@ -521,27 +599,37 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
         const int i_begin = max(c0, hs + gs * (he - hs) / kSplit);
         const int i_end = min(c1, hs + (gs + 1) * (he - hs) / kSplit);
         for (int i = i_begin; i < i_end; ++i) {
-          const float* in_row = s_in + (ty + i - u0) * in_w + tx * kRx;
-          const float* t_rowp = s_tc + (i - t_row) * tw4;
-          float4 a = *reinterpret_cast<const float4*>(in_row);
-          for (int j0 = 0; j0 < tw4e; j0 += 4) {
-            const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
-            const float4 tv = *reinterpret_cast<const float4*>(t_rowp + j0);
-            const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+          if constexpr (kPasses == 0) {
+            const float* in_row = s_in + (ty + i - u0) * in_w + tx * kRx;
+            const float* t_rowp = s_tc + (i - t_row) * tw4;
+            float4 a = *reinterpret_cast<const float4*>(in_row);
+            for (int j0 = 0; j0 < tw4e; j0 += 4) {
+              const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
+              const float4 tv = *reinterpret_cast<const float4*>(t_rowp + j0);
+              const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-            for (int k = 0; k < kRx; ++k) {
-              acc[k] = fmaf(wv[k], tv.x, acc[k]);
-              acc[k] = fmaf(wv[k + 1], tv.y, acc[k]);
-              acc[k] = fmaf(wv[k + 2], tv.z, acc[k]);
-              acc[k] = fmaf(wv[k + 3], tv.w, acc[k]);
+              for (int k = 0; k < kRx; ++k) {
+                acc[k] = fmaf(wv[k], tv.x, acc[k]);
+                acc[k] = fmaf(wv[k + 1], tv.y, acc[k]);
+                acc[k] = fmaf(wv[k + 2], tv.z, acc[k]);
+                acc[k] = fmaf(wv[k + 3], tv.w, acc[k]);
+              }
+              a = b;
             }
-            a = b;
+          } else {
+            float c[4];
+            row_mma<kPasses>(c, reinterpret_cast<const uint32_t*>(s_in) + (i - u0) * in_w,
+                             reinterpret_cast<const uint32_t*>(s_tc) + (i - t_row) * tw4, in_w,
+                             in_wl, tw);
+#pragma unroll
+            for (int k = 0; k < kRx; ++k) acc[k] = __fadd_rn(acc[k], c[k]);
           }
         }
         if (kWhole || (u0 < he && u1 >= he)) {
 #pragma unroll
           for (int k = 0; k < kRx; ++k) {
-            s_red[(h * kSplit + group) * kOut + lt * kRx + k] = acc[k];
+            const int out = kPasses == 0 ? lt * kRx + k : tile_output(lt, k);
+            s_red[(h * kSplit + group) * kOut + out] = acc[k];
             acc[k] = 0.0f;
           }
         }
@@ -634,13 +722,68 @@ score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
   }
 }
 
+// The float32 tier, with its register budget left to ptxas (64 registers,
+// two blocks an SM at 80 x 80).
+template <bool kWhole, bool kOne, bool kExt>
+__global__ void __launch_bounds__(kScoreThreads)
+score_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
+             const int32_t* __restrict__ si, const float* __restrict__ sf,
+             float* __restrict__ part_val, int32_t* __restrict__ part_yx,
+             float* split_part, int32_t* split_count, Params p, int t) {
+  score_body<kWhole, kOne, kExt, 0>(frames, tpl, si, sf, part_val, part_yx, split_part,
+                                    split_count, p, t);
+}
+
+// The bf16 tiers ask for two blocks an SM (at most 64 registers a thread):
+// left free, ptxas gave the 2- and 3-pass K1 kernels 90 registers, one block
+// an SM, and a local frame's items half the card in a second wave.
+template <bool kWhole, bool kOne, bool kExt, int kPasses>
+__global__ void __launch_bounds__(kScoreThreads, 2)
+score_kernel_tier(const uint8_t* __restrict__ frames, const float* __restrict__ tpl,
+                  const int32_t* __restrict__ si, const float* __restrict__ sf,
+                  float* __restrict__ part_val, int32_t* __restrict__ part_yx,
+                  float* split_part, int32_t* split_count, Params p, int t) {
+  score_body<kWhole, kOne, kExt, kPasses>(frames, tpl, si, sf, part_val, part_yx, split_part,
+                                          split_count, p, t);
+}
+
+// Look-ahead record of a frame that is not scored: the state as it stands,
+// score -1, no update (pvot/ops/ncc_mega.py:294-311).
+__device__ __forceinline__ void lookahead_row(float* row, const int32_t* si) {
+  row[0] = static_cast<float>(si[0]);
+  row[1] = static_cast<float>(si[1]);
+  row[2] = static_cast<float>(si[2]);
+  row[3] = static_cast<float>(si[3]);
+  row[4] = -1.0f;
+  row[5] = 0.0f;
+  row[6] = 0.0f;
+  row[7] = static_cast<float>(si[4]);
+  row[8] = static_cast<float>(si[5]);
+  row[9] = 0.0f;
+}
+
+// The look-ahead records of frames [t0, n_frames) of every lane (a block
+// per lane): the chunk's frames after its last scored one.
+__global__ void lookahead_kernel(const int32_t* __restrict__ si, float* __restrict__ rows,
+                                 int t0, int n_frames) {
+  const int s = blockIdx.x;
+  for (int t = t0 + static_cast<int>(threadIdx.x); t < n_frames; t += blockDim.x) {
+    lookahead_row(rows + (static_cast<size_t>(s) * n_frames + t) * kRecord, si + s * kStateI);
+  }
+}
+
 // kExt: the lanes have extents of their own (the score kernel's kExt).
-template <bool kExt>
+// kBatch: the look-ahead cadence (batch > 1; the state's n_valid field then
+// holds n_full, so frame t is valid only below it): frame t is the last of a
+// batch, the launch also writes the look-ahead records of the batch's
+// earlier frames from the state before this commit, and a frame past n_full
+// records -1 as its score.
+template <bool kExt, bool kBatch>
 __global__ void __launch_bounds__(kCommitThreads)
 commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
               int32_t* __restrict__ si, float* __restrict__ sf,
               const float* __restrict__ part_val, const int32_t* __restrict__ part_yx,
-              float* __restrict__ rows, Params p, int t, int n_frames) {
+              float* __restrict__ rows, Params p, int t, int n_frames, int batch) {
   __shared__ Best s_best[kCommitThreads / 32];
   __shared__ float2 s_sum2[kCommitThreads / 32];
   const int s = blockIdx.x;
@@ -659,6 +802,11 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
   const int bx = si[0], by = si[1], bw = si[2], bh = si[3];
   const int lost = si[4], useg = si[5];
   const float t_mean = sf[0], t_std = sf[1], sum_tc = sf[2];
+  if constexpr (kBatch) {
+    for (int u = t - batch + 1 + static_cast<int>(threadIdx.x); u < t; u += blockDim.x) {
+      lookahead_row(row + static_cast<long long>(u - t) * kRecord, si);
+    }
+  }
 
   Best best = empty_best();
   for (int i = threadIdx.x; i < p.n_slots; i += blockDim.x) {
@@ -744,7 +892,7 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
     row[1] = static_cast<float>(new_by);
     row[2] = static_cast<float>(new_bw);
     row[3] = static_cast<float>(new_bh);
-    row[4] = best.val;
+    row[4] = kBatch && !m.valid ? -1.0f : best.val;
     row[5] = accept ? 1.0f : 0.0f;
     row[6] = 0.0f;  // O_POISON: this kernel never poisons
     row[7] = static_cast<float>(new_lost);
@@ -755,13 +903,46 @@ commit_kernel(const uint8_t* __restrict__ frames, float* __restrict__ tpl,
 
 using ScoreKernel = void (*)(const uint8_t*, const float*, const int32_t*, const float*,
                             float*, int32_t*, float*, int32_t*, Params, int);
+using CommitKernel = void (*)(const uint8_t*, float*, int32_t*, float*, const float*,
+                              const int32_t*, float*, Params, int, int, int);
+
+template <int kPasses>
+ScoreKernel score_kernel_of(bool whole, bool one, bool ext) {
+  if constexpr (kPasses == 0) {
+    if (one) return whole ? score_kernel<true, true, false> : score_kernel<false, true, false>;
+    if (ext) return whole ? score_kernel<true, false, true> : score_kernel<false, false, true>;
+    return whole ? score_kernel<true, false, false> : score_kernel<false, false, false>;
+  } else {
+    if (one) {
+      return whole ? score_kernel_tier<true, true, false, kPasses>
+                   : score_kernel_tier<false, true, false, kPasses>;
+    }
+    if (ext) {
+      return whole ? score_kernel_tier<true, false, true, kPasses>
+                   : score_kernel_tier<false, false, true, kPasses>;
+    }
+    return whole ? score_kernel_tier<true, false, false, kPasses>
+                 : score_kernel_tier<false, false, false, kPasses>;
+  }
+}
 
 // The score kernel's instantiation for a template staged whole or in
-// chunks, for one lane or many, and for lanes with extents of their own.
-ScoreKernel score_kernel_for(bool whole, bool one, bool ext) {
-  if (one) return whole ? score_kernel<true, true, false> : score_kernel<false, true, false>;
-  if (ext) return whole ? score_kernel<true, false, true> : score_kernel<false, false, true>;
-  return whole ? score_kernel<true, false, false> : score_kernel<false, false, false>;
+// chunks, for one lane or many, for lanes with extents of their own, and
+// for the score tier (0: float32; 1, 2, 3: bf16 passes); null for another
+// tier.
+ScoreKernel score_kernel_for(bool whole, bool one, bool ext, int passes) {
+  switch (passes) {
+    case 0: return score_kernel_of<0>(whole, one, ext);
+    case 1: return score_kernel_of<1>(whole, one, ext);
+    case 2: return score_kernel_of<2>(whole, one, ext);
+    case 3: return score_kernel_of<3>(whole, one, ext);
+    default: return nullptr;
+  }
+}
+
+CommitKernel commit_kernel_for(bool ext, bool batch) {
+  if (ext) return batch ? commit_kernel<true, true> : commit_kernel<true, false>;
+  return batch ? commit_kernel<false, true> : commit_kernel<false, false>;
 }
 
 // Lets a score block use `smem` bytes of dynamic shared memory, and asks for
@@ -775,7 +956,12 @@ cudaError_t set_score_smem(ScoreKernel kernel, int smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// One chunk of n_frames over n_lanes lanes: 2 * n_frames launches on `stream`.
+// One chunk of n_frames over n_lanes lanes on `stream`, at the score tier
+// `passes` (0: float32) and the cadence `batch`: a score and a commit launch
+// for each frame t with t % batch == batch - 1 (every frame at batch 1),
+// then, when batch does not divide n_frames, one lookahead_kernel launch for
+// the frames after the last of them: 2 * (n_frames / batch) + (n_frames %
+// batch != 0) launches.  Frames that are not scored cost no score launch.
 // ext: per-lane (th_k, tw_k) inside the th x tw template buffer, or null.
 int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int n_frames,
                  int frame_h, int frame_w, int th, int tw, const int32_t* ext,
@@ -784,7 +970,7 @@ int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int
                  float* split_part, int32_t* split_count, float* rows, int radius_x,
                  int radius_y, int lost_threshold, int enable_global, float min_conf,
                  float global_conf, float strong_conf, float lr, float one_minus_lr,
-                 cudaStream_t stream) {
+                 int passes, int batch, cudaStream_t stream) {
   Params p{};
   p.frame_h = frame_h; p.frame_w = frame_w; p.th = th; p.tw = tw;
   p.out_h = frame_h - th + 1; p.out_w = frame_w - tw + 1;
@@ -801,26 +987,29 @@ int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int
   p.lr = lr; p.one_minus_lr = one_minus_lr;
   // A one-lane launch runs the kOne instantiation, which has no lane table
   // and takes the launch's extent: an extent table needs two lanes or more.
+  const ScoreKernel score =
+      score_kernel_for(p.stage_rows == th, n_lanes == 1, ext != nullptr, passes);
   if (p.stage_rows < 1 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1 ||
-      (ext != nullptr && n_lanes < 2)) {
+      (ext != nullptr && n_lanes < 2) || score == nullptr || batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = score_smem_bytes(p.stage_rows, tw, n_lanes);
-  const ScoreKernel score = score_kernel_for(p.stage_rows == th, n_lanes == 1, ext != nullptr);
+  const CommitKernel commit = commit_kernel_for(ext != nullptr, batch > 1);
   cudaError_t err = set_score_smem(score, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int t = 0; t < n_frames; ++t) {
+  for (int t = batch - 1; t < n_frames; t += batch) {
     score<<<n_blocks, kScoreThreads, smem, stream>>>(
         frames, tpl, state_i, state_f, part_val, part_yx, split_part, split_count, p, t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (ext != nullptr) {
-      commit_kernel<true><<<n_lanes, kCommitThreads, 0, stream>>>(
-          frames, tpl, state_i, state_f, part_val, part_yx, rows, p, t, n_frames);
-    } else {
-      commit_kernel<false><<<n_lanes, kCommitThreads, 0, stream>>>(
-          frames, tpl, state_i, state_f, part_val, part_yx, rows, p, t, n_frames);
-    }
+    commit<<<n_lanes, kCommitThreads, 0, stream>>>(frames, tpl, state_i, state_f, part_val,
+                                                   part_yx, rows, p, t, n_frames, batch);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_frames % batch != 0) {
+    lookahead_kernel<<<n_lanes, 32, 0, stream>>>(state_i, rows, n_frames / batch * batch,
+                                                 n_frames);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -831,7 +1020,9 @@ int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int
 
 extern "C" {
 
-// K1: one stream's chunk, 2 * n_frames launches on `stream`, no
+// K1: one stream's chunk at the score tier `passes` (0: float32; 1, 2, 3
+// bf16 passes) and the cadence `batch`: 2 * (n_frames / batch) + (n_frames %
+// batch != 0) launches on `stream` (2 * n_frames at batch 1), no
 // synchronisation.  state_i = [bx, by, bw, bh, lost, use_global, n_valid, _],
 // state_f = [t_mean, t_std, sum_tc, _] and tpl (th x round_up4(tw),
 // zero-padded columns) are read and updated in place; rows is (n_frames, 10).
@@ -845,15 +1036,16 @@ int pvot_mega_track_chunk(const uint8_t* frames, int n_frames, int frame_h, int 
                           float* split_part, int32_t* split_count, float* rows,
                           int radius_x, int radius_y, int lost_threshold, int enable_global,
                           float min_conf, float global_conf, float strong_conf, float lr,
-                          float one_minus_lr, void* stream) {
+                          float one_minus_lr, int passes, int batch, void* stream) {
   return launch_chunk(frames, 0, 1, n_frames, frame_h, frame_w, th, tw, nullptr, state_i,
                       state_f, tpl, part_val, part_yx, n_blocks, split_part, split_count, rows,
                       radius_x, radius_y, lost_threshold, enable_global, min_conf,
-                      global_conf, strong_conf, lr, one_minus_lr,
+                      global_conf, strong_conf, lr, one_minus_lr, passes, batch,
                       static_cast<cudaStream_t>(stream));
 }
 
-// K2: n_lanes streams' chunks, 2 * n_frames launches in all.  Lane s reads
+// K2: n_lanes streams' chunks, tier and cadence as K1's and as many launches
+// in all.  Lane s reads
 // frames + s * frame_stride (n_frames x frame_h x frame_w u8), state_i + 8s,
 // state_f + 4s, tpl + s * th * round_up4(tw), and writes rows + 10 * s *
 // n_frames.  The n_blocks score blocks share the union of all lanes' tiles.
@@ -866,17 +1058,17 @@ int pvot_mega_track_chunk_multi(const uint8_t* frames, long long frame_stride, i
                                 float* split_part, int32_t* split_count, float* rows,
                                 int radius_x, int radius_y, int lost_threshold,
                                 int enable_global, float min_conf, float global_conf,
-                                float strong_conf, float lr, float one_minus_lr,
-                                void* stream) {
+                                float strong_conf, float lr, float one_minus_lr, int passes,
+                                int batch, void* stream) {
   return launch_chunk(frames, frame_stride, n_lanes, n_frames, frame_h, frame_w, th, tw,
                       nullptr, state_i, state_f, tpl, part_val, part_yx, n_blocks, split_part,
                       split_count, rows, radius_x, radius_y, lost_threshold, enable_global,
-                      min_conf, global_conf, strong_conf, lr, one_minus_lr,
+                      min_conf, global_conf, strong_conf, lr, one_minus_lr, passes, batch,
                       static_cast<cudaStream_t>(stream));
 }
 
 // K3: n_objects trackers over ONE clip (frames: n_frames x frame_h x frame_w
-// u8, read by every object), 2 * n_frames launches in all; replaces
+// u8, read by every object), tier, cadence and launches as K1's; replaces
 // pvot/ops/ncc_mega.py:1246 (`mega_track_chunk_objects`, :1115).  Object k
 // reads and updates state_i + 8k, state_f + 4k and its template at tpl + k *
 // th * round_up4(tw), and writes rows + 10 * k * n_frames, as a K2 lane does.
@@ -899,12 +1091,12 @@ int pvot_mega_track_chunk_objects(const uint8_t* frames, int n_objects, int n_fr
                                   float* split_part, int32_t* split_count, float* rows,
                                   int radius_x, int radius_y, int lost_threshold,
                                   int enable_global, float min_conf, float global_conf,
-                                  float strong_conf, float lr, float one_minus_lr,
-                                  void* stream) {
+                                  float strong_conf, float lr, float one_minus_lr, int passes,
+                                  int batch, void* stream) {
   return launch_chunk(frames, 0, n_objects, n_frames, frame_h, frame_w, th, tw, ext, state_i,
                       state_f, tpl, part_val, part_yx, n_blocks, split_part, split_count, rows,
                       radius_x, radius_y, lost_threshold, enable_global, min_conf,
-                      global_conf, strong_conf, lr, one_minus_lr,
+                      global_conf, strong_conf, lr, one_minus_lr, passes, batch,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -914,15 +1106,15 @@ int pvot_mega_stage_rows(int th, int tw, int n_lanes) {
   return stage_rows(th, tw, n_lanes);
 }
 
-// Score blocks resident on one SM at the given geometry (for the build
-// report), or -1 on a CUDA error.
-int pvot_mega_score_blocks_per_sm(int th, int tw, int n_lanes) {
+// Score blocks resident on one SM at the given geometry and tier (for the
+// build report), or -1 on a CUDA error.
+int pvot_mega_score_blocks_per_sm(int th, int tw, int n_lanes, int passes) {
   const int rows = stage_rows(th, tw, n_lanes);
   if (rows < 1) return -1;
   const int smem = score_smem_bytes(rows, tw, n_lanes);
-  const ScoreKernel score = score_kernel_for(rows == th, n_lanes == 1, false);
+  const ScoreKernel score = score_kernel_for(rows == th, n_lanes == 1, false, passes);
   int n = 0;
-  if (set_score_smem(score, smem) != cudaSuccess ||
+  if (score == nullptr || set_score_smem(score, smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, score, kScoreThreads, smem) !=
           cudaSuccess) {
     return -1;

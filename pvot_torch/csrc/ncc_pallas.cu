@@ -2,7 +2,9 @@
 // pvot/ops/ncc_pallas.py `_ncc_pallas_padded` (:406, K4: `_ncc_kernel` :179
 // over `_score_tile` :90-176) and `_ncc_argmax_padded` (:531, K5:
 // `_ncc_argmax_kernel` :234), both at their f32 tier (highest=True; the
-// shear and operator forms compute the same scores).
+// shear and operator forms compute the same scores) and at the 3-pass bf16
+// tier of the `pallas_fast` engine (highest=False: `_dot_hl3`, :63-87, on
+// the operator form, :137-147).
 //
 // Lanes.  One launch serves L lanes (grid.y): lane l reads its image at
 // img + l * lane_stride (0: every lane reads one frame), from its origin
@@ -45,14 +47,32 @@
 // 80x80 / r60 scores 121 x 121 positions, 93.7 M FMA (2.80 us at 67
 // TFLOP/s); a K4 global frame at 720p / 80x80 scores 641 x 1201 positions,
 // 4.93 G FMA (0.1471 ms).  Bytes are small beside them: a 0.9 MB frame.
-// This first design keeps the correlation on FP32 FMAs from shared memory;
-// measured times are in PERF.md.  Build without --use_fast_math.
+// The f32 tier keeps the correlation on FP32 FMAs from shared memory.  The
+// 3-pass tier (kPasses 3) runs it on the tensor cores with warp-level
+// mma.sync.m16n8k16.bf16 (tiers.cuh): corr(hi w, hi t) + corr(hi w, lo t) +
+// corr(lo w, hi t), the template staged as hi/lo slots and the window split
+// in place after its float32 box sums, in the bytes of the float32 rows, so
+// both tiers stage the same rows; its bound is 3 bf16 passes at 989 TFLOP/s
+// (0.57 us for a K5 local frame), below the latency of one launch.  The
+// tensor core's float32 sums are not round-to-nearest: each template row's
+// fragment starts from 0 and joins the thread's float32 sums with one
+// round-to-nearest addition.  In the pallas_fast engine only the region
+// scores (K5, and K4's region path past the span gate) run the tier; its
+// full maps stay float32 (pvot/ops/backends.py:212-214).  Measured times are
+// in PERF.md.  Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tiers.cuh"
+
 namespace {
+
+using pvot_tiers::row_mma;
+using pvot_tiers::split_pack;
+using pvot_tiers::split_rows_in_place;
+using pvot_tiers::tile_output;
 
 constexpr int kTileH = 8;                              // output rows per tile
 constexpr int kTileW = 16;                             // output columns per tile
@@ -161,8 +181,11 @@ __device__ __forceinline__ float pixel(const float* p) { return *p; }
 // the image's coordinates, through per-block partials (part_val, part_yx:
 // n_tiles a lane) and a per-lane counter `done` (zero before the launch, and
 // again after it).  lanes: kLane ints a lane (origin and window), or null
-// for origin (0, 0) (K4 only).
-template <typename Pix, bool kArgmax>
+// for origin (0, 0) (K4 only).  kPasses: the correlation's tier, 0 for
+// float32 FMAs, 3 for the bf16 hi/lo passes of tiers.cuh (the `pallas_fast`
+// engine's region scores); the template's and then the window's hi/lo slots
+// take the float32 rows' bytes, so every tier stages the same rows.
+template <typename Pix, bool kArgmax, int kPasses>
 __global__ void __launch_bounds__(kThreads)
 ncc_kernel(const Pix* __restrict__ img, const int32_t* __restrict__ lanes,
            const float* __restrict__ tpl, const float* __restrict__ t_mean,
@@ -213,7 +236,11 @@ ncc_kernel(const Pix* __restrict__ img, const int32_t* __restrict__ lanes,
         v = __fsub_rn(tp[static_cast<size_t>(r0 + i) * g.tw + j], mean_t);
         tsum = __fadd_rn(tsum, v);
       }
-      s_tc[idx] = v;
+      if constexpr (kPasses == 0) {
+        s_tc[idx] = v;
+      } else {
+        reinterpret_cast<uint32_t*>(s_tc)[idx] = split_pack(v);
+      }
     }
     for (int idx = threadIdx.x; idx < in_rows * in_wl; idx += kThreads) {
       const int r = idx / in_wl, c = idx % in_wl;
@@ -236,25 +263,39 @@ ncc_kernel(const Pix* __restrict__ img, const int32_t* __restrict__ lanes,
       s_rs[e] = rs;
       s_rq[e] = rq;
     }
+    if constexpr (kPasses != 0) {
+      __syncthreads();  // the box sums have read the float32 window rows
+      split_rows_in_place(s_in, in_rows, in_wl, in_w);
+      __syncthreads();
+    }
     // ... while each warp correlates its share of the chunk's rows, four
-    // neighbouring outputs a thread, four taps a step.
+    // neighbouring outputs a thread, four taps a step (or a template row a
+    // step on the tensor cores, at a bf16 tier).
     const int i_begin = group * cr / kGroups, i_end = (group + 1) * cr / kGroups;
     for (int i = i_begin; i < i_end; ++i) {
-      const float* in_row = s_in + (ty + i) * in_w + tx * kRx;
-      const float* t_row = s_tc + i * tw4;
-      float4 a = *reinterpret_cast<const float4*>(in_row);
-      for (int j0 = 0; j0 < tw4; j0 += 4) {
-        const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
-        const float4 tv = *reinterpret_cast<const float4*>(t_row + j0);
-        const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      if constexpr (kPasses == 0) {
+        const float* in_row = s_in + (ty + i) * in_w + tx * kRx;
+        const float* t_row = s_tc + i * tw4;
+        float4 a = *reinterpret_cast<const float4*>(in_row);
+        for (int j0 = 0; j0 < tw4; j0 += 4) {
+          const float4 b = *reinterpret_cast<const float4*>(in_row + j0 + 4);
+          const float4 tv = *reinterpret_cast<const float4*>(t_row + j0);
+          const float wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int k = 0; k < kRx; ++k) {
-          acc[k] = fmaf(wv[k], tv.x, acc[k]);
-          acc[k] = fmaf(wv[k + 1], tv.y, acc[k]);
-          acc[k] = fmaf(wv[k + 2], tv.z, acc[k]);
-          acc[k] = fmaf(wv[k + 3], tv.w, acc[k]);
+          for (int k = 0; k < kRx; ++k) {
+            acc[k] = fmaf(wv[k], tv.x, acc[k]);
+            acc[k] = fmaf(wv[k + 1], tv.y, acc[k]);
+            acc[k] = fmaf(wv[k + 2], tv.z, acc[k]);
+            acc[k] = fmaf(wv[k + 3], tv.w, acc[k]);
+          }
+          a = b;
         }
-        a = b;
+      } else {
+        float c[4];
+        row_mma<kPasses>(c, reinterpret_cast<const uint32_t*>(s_in) + i * in_w,
+                         reinterpret_cast<const uint32_t*>(s_tc) + i * tw4, in_w, in_wl, g.tw);
+#pragma unroll
+        for (int k = 0; k < kRx; ++k) acc[k] = __fadd_rn(acc[k], c[k]);
       }
     }
     __syncthreads();  // row sums are in shared memory
@@ -266,7 +307,9 @@ ncc_kernel(const Pix* __restrict__ img, const int32_t* __restrict__ lanes,
     }
   }
 #pragma unroll
-  for (int k = 0; k < kRx; ++k) s_red[group * kOut + lt * kRx + k] = acc[k];
+  for (int k = 0; k < kRx; ++k) {
+    s_red[group * kOut + (kPasses == 0 ? lt * kRx + k : tile_output(lt, k))] = acc[k];
+  }
   const float sum_tc = block_sum(tsum, s_sum);  // its barriers publish s_red too
 
   Best best = empty_best();
@@ -334,7 +377,7 @@ cudaError_t allow_smem(Kernel kernel, int smem, int* granted) {
   return err;
 }
 
-template <typename Pix, bool kArgmax>
+template <typename Pix, bool kArgmax, int kPasses>
 int launch(const Pix* img, int img_h, int img_w, long long row_stride, long long lane_stride,
            const int32_t* lanes, int n_lanes, int out_h, int out_w, const float* tpl,
            long long tpl_stride, int th, int tw, const float* t_mean, const float* t_std,
@@ -353,12 +396,33 @@ int launch(const Pix* img, int img_h, int img_w, long long row_stride, long long
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = smem_bytes(g.rows, tw);
-  auto kernel = ncc_kernel<Pix, kArgmax>;
+  auto kernel = ncc_kernel<Pix, kArgmax, kPasses>;
   cudaError_t err = allow_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(g.n_tiles, n_lanes), kThreads, smem, stream>>>(
       img, lanes, tpl, t_mean, t_std, g, out, part_val, part_yx, done);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch() at the tier `passes`: 0 (float32) or 3 (bf16 hi/lo); another
+// tier is refused.
+template <typename Pix, bool kArgmax>
+int launch_tier(int passes, const Pix* img, int img_h, int img_w, long long row_stride,
+                long long lane_stride, const int32_t* lanes, int n_lanes, int out_h, int out_w,
+                const float* tpl, long long tpl_stride, int th, int tw, const float* t_mean,
+                const float* t_std, int stat_stride, float* out, float* part_val,
+                int32_t* part_yx, int32_t* done, cudaStream_t stream) {
+  if (passes == 0) {
+    return launch<Pix, kArgmax, 0>(img, img_h, img_w, row_stride, lane_stride, lanes, n_lanes,
+                                   out_h, out_w, tpl, tpl_stride, th, tw, t_mean, t_std,
+                                   stat_stride, out, part_val, part_yx, done, stream);
+  }
+  if (passes == 3) {
+    return launch<Pix, kArgmax, 3>(img, img_h, img_w, row_stride, lane_stride, lanes, n_lanes,
+                                   out_h, out_w, tpl, tpl_stride, th, tw, t_mean, t_std,
+                                   stat_stride, out, part_val, part_yx, done, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -370,22 +434,24 @@ extern "C" {
 // lane_stride elements, rows row_stride apart, img_h x img_w of them; lanes:
 // null (every origin (0, 0)) or kLane ints a lane whose first two are the
 // origin (x0, y0); tpl: th x tw f32 rows at tpl + l * tpl_stride; t_mean,
-// t_std: f32 at l * stat_stride; out: n_lanes x out_h x out_w f32.  Returns
-// the CUDA error of the launch, or 0.
+// t_std: f32 at l * stat_stride; out: n_lanes x out_h x out_w f32; passes:
+// the tier, 0 (float32) or 3 (bf16 hi/lo).  Returns the CUDA error of the
+// launch, or 0.
 int pvot_ncc_map(const void* img, int img_u8, int img_h, int img_w, long long row_stride,
                  long long lane_stride, const int32_t* lanes, int n_lanes, int out_h, int out_w,
                  const float* tpl, long long tpl_stride, int th, int tw, const float* t_mean,
-                 const float* t_std, int stat_stride, float* out, void* stream) {
+                 const float* t_std, int stat_stride, float* out, int passes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (img_u8) {
-    return launch<uint8_t, false>(static_cast<const uint8_t*>(img), img_h, img_w, row_stride,
-                                  lane_stride, lanes, n_lanes, out_h, out_w, tpl, tpl_stride,
-                                  th, tw, t_mean, t_std, stat_stride, out, nullptr, nullptr,
-                                  nullptr, s);
+    return launch_tier<uint8_t, false>(passes, static_cast<const uint8_t*>(img), img_h, img_w,
+                                       row_stride, lane_stride, lanes, n_lanes, out_h, out_w,
+                                       tpl, tpl_stride, th, tw, t_mean, t_std, stat_stride, out,
+                                       nullptr, nullptr, nullptr, s);
   }
-  return launch<float, false>(static_cast<const float*>(img), img_h, img_w, row_stride,
-                              lane_stride, lanes, n_lanes, out_h, out_w, tpl, tpl_stride, th,
-                              tw, t_mean, t_std, stat_stride, out, nullptr, nullptr, nullptr, s);
+  return launch_tier<float, false>(passes, static_cast<const float*>(img), img_h, img_w,
+                                   row_stride, lane_stride, lanes, n_lanes, out_h, out_w, tpl,
+                                   tpl_stride, th, tw, t_mean, t_std, stat_stride, out, nullptr,
+                                   nullptr, nullptr, s);
 }
 
 // K5: n_lanes fused region scores + window mask + argmax, one launch on
@@ -395,22 +461,24 @@ int pvot_ncc_map(const void* img, int img_u8, int img_h, int img_w, long long ro
 // out: n_lanes x 3 f32 (value, x, y), x and y in the image's coordinates.
 // part_val (n_lanes x n_tiles f32), part_yx (n_lanes x n_tiles x 2 i32) and
 // done (n_lanes i32, zero; left zero) are scratch, n_tiles = ceil(out_h / 8)
-// * ceil(out_w / 16).
+// * ceil(out_w / 16).  passes: the tier, as in pvot_ncc_map.
 int pvot_ncc_region_argmax(const void* img, int img_u8, int img_h, int img_w,
                            long long row_stride, long long lane_stride, const int32_t* lanes,
                            int n_lanes, int out_h, int out_w, const float* tpl,
                            long long tpl_stride, int th, int tw, const float* t_mean,
                            const float* t_std, int stat_stride, float* out, float* part_val,
-                           int32_t* part_yx, int32_t* done, void* stream) {
+                           int32_t* part_yx, int32_t* done, int passes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (img_u8) {
-    return launch<uint8_t, true>(static_cast<const uint8_t*>(img), img_h, img_w, row_stride,
-                                 lane_stride, lanes, n_lanes, out_h, out_w, tpl, tpl_stride, th,
-                                 tw, t_mean, t_std, stat_stride, out, part_val, part_yx, done, s);
+    return launch_tier<uint8_t, true>(passes, static_cast<const uint8_t*>(img), img_h, img_w,
+                                      row_stride, lane_stride, lanes, n_lanes, out_h, out_w,
+                                      tpl, tpl_stride, th, tw, t_mean, t_std, stat_stride, out,
+                                      part_val, part_yx, done, s);
   }
-  return launch<float, true>(static_cast<const float*>(img), img_h, img_w, row_stride,
-                             lane_stride, lanes, n_lanes, out_h, out_w, tpl, tpl_stride, th, tw,
-                             t_mean, t_std, stat_stride, out, part_val, part_yx, done, s);
+  return launch_tier<float, true>(passes, static_cast<const float*>(img), img_h, img_w,
+                                  row_stride, lane_stride, lanes, n_lanes, out_h, out_w, tpl,
+                                  tpl_stride, th, tw, t_mean, t_std, stat_stride, out, part_val,
+                                  part_yx, done, s);
 }
 
 // Template rows a block stages at once (see chunk_rows), for the wrapper's

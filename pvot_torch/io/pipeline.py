@@ -258,8 +258,11 @@ def track_stream_batched(
     device=None,
 ):
     """Reference-parity batch mode (--batch=N) over a frame stream, the
-    semantics of track_video_batched (C10).  backend="mega" runs the CUDA
-    engine: the in-kernel batch cadence is not ported (ROADMAP A7)."""
+    semantics of track_video_batched (C10).  backend="mega" with the fused
+    strategy runs the chunk kernel's in-kernel cadence: each pipeline chunk
+    of n x chunks_per_dispatch frames is one track_video_mega(batch=n) call
+    (pvot/io/pipeline.py:380-395); only the last chunk may be partial, and
+    its leftover frames get the look-ahead records in the kernel."""
     import torch
 
     from pvot_torch.config import TrackerConfig
@@ -272,6 +275,9 @@ def track_stream_batched(
     n = batch_size or config.batch_size
     device = _stream_device(state, device)
     h, w = frame_shape
+    if backend == "mega" and strategy == "fused":
+        return _track_stream_mega_batched(frame_iter, state, frame_shape, config, n,
+                                          n * max(1, chunks_per_dispatch), timings, device)
     c = carry_from_state(state.to(device))
     batch_step = make_batched_step((h, w), tuple(c.template.shape), config, n, strategy,
                                    backend)
@@ -300,3 +306,31 @@ def track_stream_batched(
     if leftover:
         outs.append(leftover_tail(c, leftover))
     return state_from_carry(c), concat_outputs(outs)
+
+
+def _track_stream_mega_batched(frame_iter, state, frame_shape, config, n: int, group: int,
+                               timings: Optional[list], device):
+    """track_stream_batched's mega route: every pipeline chunk of `group`
+    frames (a multiple of n) through track_video_mega(batch=n)."""
+    import torch
+
+    from pvot_torch.tracker.mega import track_video_mega
+    from pvot_torch.tracker.scan import concat_outputs
+
+    pipe = FramePipeline(frame_iter, frame_shape, chunk_size=group)
+    outs = []
+    state = state.to(device)
+    mark = time.perf_counter()
+    try:
+        for chunk, n_real in pipe.chunks():
+            dev_chunk = torch.from_numpy(chunk[:n_real]).to(device)
+            state, out = track_video_mega(dev_chunk, state, config, chunk_size=group,
+                                          device=device, batch=n)
+            outs.append(out)
+            now = time.perf_counter()
+            if timings is not None:
+                timings.append((n_real, now - mark))
+            mark = now
+    finally:
+        pipe.close()
+    return state, concat_outputs(outs)

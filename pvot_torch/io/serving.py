@@ -42,6 +42,7 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.pipeline import FramePipeline
 from pvot_torch.ops.ncc_mega import N_LANES, MegaGeometry
+from pvot_torch.ops.ncc_reference import score_tier
 from pvot_torch.parallel.multi import num_streams, stack_states, unstack_state
 from pvot_torch.tracker.mega import (
     _rows_to_output, bucket_extents, mega_chunk_step_multi, mega_chunk_step_objects,
@@ -78,17 +79,16 @@ class _StreamFeed:
         self.pipe.close()
 
 
-def _check_options(backend: str, highest: bool, devices) -> None:
-    """The JAX package's serving options that the port does not have yet
-    raise, naming their ROADMAP item; none is ignored."""
+def _check_options(backend: str, highest: bool, score_passes: int, devices) -> None:
+    """The score tier must be one the kernels have (score_passes 1, 2 or 3,
+    checked even when highest=True, as in JAX); the JAX package's serving
+    options that the port does not have yet raise, naming their ROADMAP
+    item; none is ignored."""
+    score_tier(highest, score_passes)
     if backend != "mega":
         raise NotImplementedError(
             f"backend={backend!r}: the port serves on the mega kernel only; serving "
             "over the scan engines is not ported yet (ROADMAP A15)"
-        )
-    if not highest:
-        raise NotImplementedError(
-            "highest=False: the fast score tiers are not ported yet (ROADMAP A6)"
         )
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
@@ -116,6 +116,7 @@ def serve_streams(
     highest: bool = True,
     pipeline_depth: int = 2,
     devices: Optional[Sequence] = None,
+    score_passes: int = 3,
 ):
     """Serve S live frame streams end to end with decode, copy and compute
     overlapped.
@@ -129,11 +130,14 @@ def serve_streams(
     StepOutputs, one per stream, each with that stream's own frame count).
     timings, when given a list, receives one (frames_committed, seconds) pair
     per lockstep chunk.  pipeline_depth is how many chunks may be in flight
-    before the oldest one's records are read (1 = synchronous).
+    before the oldest one's records are read (1 = synchronous).  highest=False
+    scores at `score_passes` bf16 passes (pvot/io/serving.py:94-104, the
+    kernels' tiers); each stream's records are then track_video_mega's at
+    that tier.
 
-    The port has the mega backend at its f32 tier on one card: another
-    backend, highest=False or several devices raise (ROADMAP A15, A6, A12)."""
-    _check_options(backend, highest, devices)
+    The port has the mega backend on one card: another backend or several
+    devices raise (ROADMAP A15, A12)."""
+    _check_options(backend, highest, score_passes, devices)
     config = config or TrackerConfig()
     n = num_streams(states)
     if len(frame_iters) != n:
@@ -144,7 +148,7 @@ def serve_streams(
     MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(n)
 
     def step(frames, st, n_real):
-        return mega_chunk_step_multi(frames, st, n_real, config)
+        return mega_chunk_step_multi(frames, st, n_real, config, highest, score_passes)
 
     return _serve_mega(frame_iters, states, tuple(frame_shape), np.arange(n), step,
                        chunk_size, timings, max(1, pipeline_depth), device)
@@ -161,6 +165,7 @@ def serve_objects(
     highest: bool = True,
     pipeline_depth: int = 2,
     devices: Optional[Sequence] = None,
+    score_passes: int = 3,
 ):
     """Serve ONE live frame stream with K trackers end to end
     (pvot/io/serving.py:570): one decode thread, every chunk through the
@@ -174,9 +179,9 @@ def serve_objects(
 
     Returns (final stacked TrackerState on that device, host StepOutput with
     the (F, K) leading layout, F = 0 included).  timings, when given a list,
-    receives one (frames, seconds) pair per chunk.  The options the port
-    does not have yet raise as in serve_streams."""
-    _check_options(backend, highest, devices)
+    receives one (frames, seconds) pair per chunk.  The score tier and the
+    options the port does not have yet are as in serve_streams."""
+    _check_options(backend, highest, score_passes, devices)
     config = config or TrackerConfig()
     k = num_streams(states)
     if chunk_size < 1:
@@ -186,7 +191,8 @@ def serve_objects(
     MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(k)
 
     def step(frames, st, n_real):
-        return mega_chunk_step_objects(frames[0], st, int(n_real[0]), config, extents)
+        return mega_chunk_step_objects(frames[0], st, int(n_real[0]), config, extents, highest,
+                                       score_passes)
 
     final, outs = _serve_mega([frame_iter], states, tuple(frame_shape), np.zeros(k, int), step,
                               chunk_size, timings, max(1, pipeline_depth), device)
@@ -304,6 +310,7 @@ def serve_streams_grouped(
     highest: bool = True,
     pipeline_depth: int = 2,
     devices: Optional[Sequence] = None,
+    score_passes: int = 3,
 ):
     """Serve S live streams with heterogeneous geometries
     (pvot/io/serving.py:314): streams may differ in frame size and template
@@ -317,10 +324,11 @@ def serve_streams_grouped(
 
     Returns (list of S final single-stream TrackerStates, list of S host
     StepOutputs) in input order.  timings, when given, receives each group's
-    per-chunk (frames, seconds) pairs, group after group."""
+    per-chunk (frames, seconds) pairs, group after group.  The score tier
+    is every group's, as in serve_streams."""
     from concurrent.futures import ThreadPoolExecutor
 
-    _check_options(backend, highest, devices)
+    _check_options(backend, highest, score_passes, devices)
     config = config or TrackerConfig()
     n = len(frame_iters)
     if len(states_list) != n or len(frame_shapes) != n:
@@ -340,8 +348,8 @@ def serve_streams_grouped(
             [frame_iters[i] for i in idxs],
             stack_states([states_list[i] for i in idxs],
                          devices[0] if devices else states_list[idxs[0]].template.device),
-            key[0], config, chunk_size=chunk_size, timings=group_timings,
-            pipeline_depth=pipeline_depth, devices=devices,
+            key[0], config, chunk_size=chunk_size, timings=group_timings, highest=highest,
+            pipeline_depth=pipeline_depth, devices=devices, score_passes=score_passes,
         )
         return final, outs, group_timings
 

@@ -32,7 +32,8 @@ _lib = None
 build_info: dict = {}  # seconds, path and compiler output of this process's load
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_CONFIG = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P]  # radii .. one_minus_lr, stream
+# radii .. one_minus_lr, passes, batch, stream
+_CONFIG = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P]
 SIGNATURES = {
     "pvot_mega_track_chunk": (
         [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
@@ -47,17 +48,17 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
-    "pvot_mega_score_blocks_per_sm": ([_I, _I, _I], ctypes.c_int),
+    "pvot_mega_score_blocks_per_sm": ([_I, _I, _I, _I], ctypes.c_int),
     # img, img_u8, img_h, img_w, row_stride, lane_stride, lanes, n_lanes, out_h,
-    # out_w, tpl, tpl_stride, th, tw, t_mean, t_std, stat_stride, out
+    # out_w, tpl, tpl_stride, th, tw, t_mean, t_std, stat_stride, out, passes, stream
     "pvot_ncc_map": (
-        [_P, _I, _I, _I, _L, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _P, _I, _P, _P],
+        [_P, _I, _I, _I, _L, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _P, _I, _P, _I, _P],
         ctypes.c_int,
     ),
-    # ... as pvot_ncc_map, then part_val, part_yx, done, stream
+    # ... as pvot_ncc_map to out, then part_val, part_yx, done, passes, stream
     "pvot_ncc_region_argmax": (
         [_P, _I, _I, _I, _L, _L, _P, _I, _I, _I, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P,
-         _P],
+         _I, _P],
         ctypes.c_int,
     ),
     "pvot_ncc_chunk_rows": ([_I, _I], ctypes.c_int),

@@ -9,15 +9,23 @@
       (K5), which the step then uses in place of region_fn + the masked
       argmax.
 
-  mode                          backend   engine
-  cuda, naive, xla, batch       xla       torch-ops im2col product + integral
-                                          images (pvot_torch.ops.ncc_matmul)
-  cpu                           cpu       the same, cv::matchTemplate
-                                          (TM_CCOEFF_NORMED) normalization
-  shared, const, const_tiled,   cuda      the hand-written kernels K4 (maps)
-  pallas, pallas_shear, shear,            and K5 (fused argmax) of
-  auto, mega                              pvot_torch.ops.ncc_pallas
-  ref_conv                      ref_conv  the conv oracle (tests, debugging)
+  mode                          backend    engine
+  cuda, naive, xla, batch       xla        torch-ops im2col product + integral
+                                           images (pvot_torch.ops.ncc_matmul)
+  fast, xla_fast                xla_fast   the same, region scores at 3 bf16
+                                           passes (JAX's Precision.HIGH)
+  cpu                           cpu        the same, cv::matchTemplate
+                                           (TM_CCOEFF_NORMED) normalization
+  shared, const, const_tiled,   cuda       the hand-written kernels K4 (maps)
+  pallas, pallas_shear, shear,             and K5 (fused argmax) of
+  auto, mega                               pvot_torch.ops.ncc_pallas
+  pallas_fast                   cuda_fast  K4 and K5 with the region scores
+                                           at 3 bf16 passes on the tensor
+                                           cores (`_dot_hl3`)
+  ref_conv                      ref_conv   the conv oracle (tests, debugging)
+
+In both fast engines the global full maps stay float32, as in JAX
+(pvot/ops/backends.py:168-177, :212-214).
 
 The JAX package's operator engine, its geometry probes and its fallback
 chains (ROADMAP R2, R3) and `prefer_pallas` (R7) have no counterpart: every
@@ -25,8 +33,7 @@ name of the Pallas family is the one CUDA engine, which launches or raises.
 `mega` reaches here only from a scan-style caller (the chunk drivers take it
 first), as in JAX.  The fused argmax keeps JAX's gate, a span of at most 128
 a side (pvot/ops/backends.py:129-147), so that the launches are the
-reference's.  The fast tiers (`fast`, `xla_fast`, `pallas_fast`) raise,
-naming ROADMAP A6.
+reference's.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ MODE_TO_BACKEND = {
     "batch": "xla",
     "fast": "xla_fast",
     "xla_fast": "xla_fast",
-    "pallas_fast": "pallas_fast",
+    "pallas_fast": "cuda_fast",
     "pallas_shear": "cuda",
     "shear": "cuda",
     "mega": "cuda",
@@ -58,7 +65,13 @@ MODE_TO_BACKEND = {
 FUSED_ARGMAX_MAX_SPAN = 128
 
 
-def fused_argmax_fn(frame_shape, templ_shape, span_x: int, span_y: int):
+def cuda_region_passes(name: str) -> Optional[int]:
+    """The region scores' pass count (0: float32, 3: bf16 hi/lo) when `name`
+    resolves to the CUDA engine, else None."""
+    return {"cuda": 0, "cuda_fast": 3}.get(MODE_TO_BACKEND.get(name))
+
+
+def fused_argmax_fn(frame_shape, templ_shape, span_x: int, span_y: int, highest: bool = True):
     """The fused argmax (K5) when the candidate region fits one JAX kernel
     tile, a span of at most 128 a side; else None (region scores by K4 and
     the argmax by torch ops)."""
@@ -66,7 +79,7 @@ def fused_argmax_fn(frame_shape, templ_shape, span_x: int, span_y: int):
 
     if span_x > FUSED_ARGMAX_MAX_SPAN or span_y > FUSED_ARGMAX_MAX_SPAN:
         return None
-    return pallas_region_argmax_fn(frame_shape, templ_shape, (span_y, span_x))
+    return pallas_region_argmax_fn(frame_shape, templ_shape, (span_y, span_x), highest=highest)
 
 
 def get_backend(
@@ -82,10 +95,11 @@ def get_backend(
     if name not in MODE_TO_BACKEND:
         raise ValueError(f"unknown NCC backend: {name!r}")
     backend = MODE_TO_BACKEND[name]
-    if backend == "xla":
+    if backend in ("xla", "xla_fast"):
         from pvot_torch.ops.ncc_matmul import make_full_fn, make_region_fn
 
-        return make_full_fn(strip_rows=128), make_region_fn(span_x, span_y), None
+        passes = 3 if backend == "xla_fast" else 0
+        return make_full_fn(strip_rows=128), make_region_fn(span_x, span_y, passes), None
     if backend == "cpu":
         from pvot_torch.ops.ncc_matmul import make_opencv_full_fn, make_opencv_region_fn
 
@@ -95,13 +109,11 @@ def get_backend(
         from pvot_torch.ops.ncc_reference import ncc_map_reference
 
         return ncc_map_reference, default_region_fn(span_x, span_y), None
-    if backend == "cuda":
-        from pvot_torch.ops.ncc_pallas import pallas_full_fn, pallas_region_fn
+    from pvot_torch.ops.ncc_pallas import pallas_full_fn, pallas_region_fn
 
-        return (
-            pallas_full_fn(frame_shape, templ_shape),
-            pallas_region_fn(frame_shape, templ_shape, (span_y, span_x)),
-            fused_argmax_fn(frame_shape, templ_shape, span_x, span_y),
-        )
-    raise NotImplementedError(
-        f"backend {name!r}: the fast score tiers are not ported yet (ROADMAP A6)")
+    highest = backend == "cuda"  # else cuda_fast
+    return (
+        pallas_full_fn(frame_shape, templ_shape),
+        pallas_region_fn(frame_shape, templ_shape, (span_y, span_x), highest=highest),
+        fused_argmax_fn(frame_shape, templ_shape, span_x, span_y, highest=highest),
+    )

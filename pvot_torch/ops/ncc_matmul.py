@@ -11,7 +11,8 @@ land where JAX's land (the tests hold them to pvot.ops.ncc_matmul).  On the
 card every product runs in full float32 (`full_f32`), whatever the global
 TF32 flags say: the JAX engine runs at HIGHEST (pvot/ops/backends.py:161-167).
 
-Engines: `make_full_fn` / `make_region_fn` (the `xla` backend),
+Engines: `make_full_fn` / `make_region_fn` (the `xla` backend; with
+`passes=3` the region scores of `xla_fast`),
 `make_opencv_full_fn` / `make_opencv_region_fn` (the `cpu` parity mode,
 cv::matchTemplate(TM_CCOEFF_NORMED)), and `make_bucketed_full_fn` /
 `make_bucketed_region_fn` (templates of mixed sizes zero-padded into one
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from pvot_torch.io.gray import ensure_gray_f32
-from pvot_torch.ops.ncc_reference import full_f32, template_stats
+from pvot_torch.ops.ncc_reference import full_f32, split_bf16, template_stats
 
 
 def cross_correlate(img: torch.Tensor, templ: torch.Tensor) -> torch.Tensor:
@@ -107,15 +108,28 @@ def sliding_box_sums(img: torch.Tensor, th: int, tw: int) -> Tuple[torch.Tensor,
     return box(img), box(img * img)
 
 
-def ncc_map_matmul(frame, templ, t_mean=None, t_std=None, strip_rows: int = 0) -> torch.Tensor:
-    """Full NCC map with the reference's epsilons (pvot/ops/ncc_matmul.py:134)."""
+def _strips_hl3(frame: torch.Tensor, tc: torch.Tensor, strip_rows: int) -> torch.Tensor:
+    """`_strips` at 3 bf16 passes: hi w * hi t + hi w * lo t + lo w * hi t,
+    each product exact and summed in float32 (pvot/ops/ncc_pallas.py:63-87;
+    XLA's Precision.HIGH on a TPU)."""
+    wh, wl = split_bf16(frame)
+    th, tl = split_bf16(tc)
+    return (_strips(wh, th, strip_rows) + _strips(wh, tl, strip_rows)
+            + _strips(wl, th, strip_rows))
+
+
+def ncc_map_matmul(frame, templ, t_mean=None, t_std=None, strip_rows: int = 0,
+                   passes: int = 0) -> torch.Tensor:
+    """Full NCC map with the reference's epsilons (pvot/ops/ncc_matmul.py:134);
+    passes=3 runs the correlation at 3 bf16 passes, the window sums stay
+    float32."""
     frame = ensure_gray_f32(frame)
     templ = templ.to(torch.float32)
     if t_mean is None or t_std is None:
         t_mean, t_std = template_stats(templ)
     th, tw = templ.shape
     n = float(th * tw)
-    cov = _strips(frame, templ - t_mean, strip_rows)
+    cov = (_strips_hl3 if passes == 3 else _strips)(frame, templ - t_mean, strip_rows)
     sums, ssq = sliding_box_sums(frame, th, tw)
     mean = sums / n
     var = ssq / n - mean * mean
@@ -152,14 +166,18 @@ def make_full_fn(strip_rows: int = 128):
     return full_fn
 
 
-def make_region_fn(span_x: int, span_y: int):
+def make_region_fn(span_x: int, span_y: int, passes: int = 0):
     """Region scorer (frame, templ, t_mean, t_std, x0, y0) -> (span_y,
-    span_x): scores only the (span + t - 1)^2 neighbourhood."""
+    span_x): scores only the (span + t - 1)^2 neighbourhood, the correlation
+    in float32 (passes 0) or at 3 bf16 passes (the `xla_fast` engine, JAX's
+    make_region_fn(precision=HIGH), pvot/ops/ncc_matmul.py:358-375)."""
+    if passes not in (0, 3):
+        raise ValueError(f"the region scorer runs 0 or 3 passes, not {passes}")
 
     def region_fn(frame, templ, t_mean, t_std, x0, y0):
         th, tw = templ.shape
         region = _region(frame, x0, y0, span_y + th - 1, span_x + tw - 1)
-        return ncc_map_matmul(region, templ, t_mean, t_std)
+        return ncc_map_matmul(region, templ, t_mean, t_std, passes=passes)
 
     return region_fn
 

@@ -1,7 +1,18 @@
 """Whole chunks of tracking, one stream, many streams or many objects: the
 port of pvot/ops/ncc_mega.py `mega_track_chunk` (:818, K1),
 `mega_track_chunk_multi` (:966, K2) and `mega_track_chunk_objects` (:1115,
-K3) at their f32 tier, with in-kernel global search.
+K3) with in-kernel global search, at every score tier and batch cadence.
+
+Tiers: `highest=True` scores in float32; `highest=False` runs the
+correlation as `score_passes` (1, 2 or 3) bf16 passes with exact products
+and float32 sums (pvot/ops/ncc_mega.py:384-440; the plain versions through
+`ncc_reference.tiered_corr`, the kernels on the tensor cores), in local
+frames and global ones alike.  `batch` > 1 is the look-ahead cadence
+(pvot/ops/ncc_mega.py:262-311): frame t of a chunk is scored and committed
+only when t % batch == batch - 1 and t < (n_valid // batch) * batch; every
+other frame emits the look-ahead record (the state as it stands, score -1,
+no update).  Any batch >= 1 runs in the kernels; the drivers cut chunks on
+batch boundaries.
 
 `mega_track_chunk` (one stream), `mega_track_chunk_multi` (S streams) and
 `mega_track_chunk_objects` (K objects over one clip, templates of one size
@@ -28,7 +39,7 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.gray import ensure_gray_f32
 from pvot_torch.ops import search as search_ops
-from pvot_torch.ops.ncc_reference import ncc_scores
+from pvot_torch.ops.ncc_reference import ncc_scores, score_tier
 from pvot_torch.tracker.state import is_bbox_outside_frame
 from pvot_torch.tracker.step import f32
 
@@ -49,6 +60,21 @@ MAX_SPAN = 512
 SMEM_LIMIT = 232_448
 _TILE_H, _TILE_W, _SPLIT = 8, 16, 16
 _LANE_WORK_BYTES = 60
+
+
+def check_batch(batch) -> int:
+    """The look-ahead cadence as an int >= 1."""
+    if int(batch) != batch or batch < 1:
+        raise ValueError(f"batch must be an integer >= 1, got {batch}")
+    return int(batch)
+
+
+def chunk_launches(n_frames: int, batch: int = 1) -> int:
+    """Kernel launches of one chunk (csrc/ncc_mega.cu launch_chunk): a score
+    and a commit launch per scored frame step, t % batch == batch - 1, and
+    one launch for the look-ahead rows after the last of them when batch
+    does not divide the chunk."""
+    return 2 * (n_frames // batch) + (1 if n_frames % batch else 0)
 
 
 def score_smem_bytes(rows: int, tw: int, table_lanes: int) -> int:
@@ -147,10 +173,16 @@ def mega_track_chunk_reference(
     use_global: torch.Tensor,
     n_valid: int,
     config: TrackerConfig,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the chunk kernel: a per-frame loop of torch
     ops with the kernel's inputs, outputs and arithmetic (the order of each
     sum aside, and the window moments summed in float64: `ncc_scores`)."""
+    passes = score_tier(highest, score_passes)
+    batch = check_batch(batch)
+    n_full = (int(n_valid) // batch) * batch
     f, h, w = frames_u8.shape
     th, tw = template.shape
     g = MegaGeometry((h, w), (th, tw), config).check()
@@ -164,12 +196,16 @@ def mega_track_chunk_reference(
     sum_tc = torch.sum(tpl - t_mean)
     rows = torch.zeros((f, N_LANES), dtype=torch.float32)
     for t in range(f):
+        if batch > 1 and not (t % batch == batch - 1 and t < n_full):
+            # The look-ahead record: the state as it stands, nothing scored.
+            rows[t] = torch.tensor([*bbox_l, -1.0, 0.0, 0.0, lost, float(useg), 0.0])
+            continue
         valid = t < n_valid
         ug, do_global, (ry0, ry1, rx0, rx1) = _frame_mode(g, config, bbox_l, lost, useg, valid)
         if ry1 >= ry0 and rx1 >= rx0:
             region = ensure_gray_f32(frames_u8[t, ry0 : ry1 + th, rx0 : rx1 + tw])
             best_val, bx, by = search_ops.argmax2d(
-                ncc_scores(region, tpl - t_mean, t_std, sum_tc, n)
+                ncc_scores(region, tpl - t_mean, t_std, sum_tc, n, passes)
             )
             best = (float(best_val), ry0 + by, rx0 + bx)
         else:  # collapsed window on a frame past n_valid
@@ -213,6 +249,9 @@ def mega_track_chunk_multi_reference(
     use_global: torch.Tensor,
     n_valid,
     config: TrackerConfig,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the multi-stream kernel: `mega_track_chunk_reference`
     on each stream with its own state and its own n_valid."""
@@ -220,7 +259,7 @@ def mega_track_chunk_multi_reference(
     outs = [
         mega_track_chunk_reference(
             frames_u8[s], bbox[s], template[s], t_mean[s], t_std[s],
-            lost_count[s], use_global[s], n_valid[s], config,
+            lost_count[s], use_global[s], n_valid[s], config, highest, score_passes, batch,
         )
         for s in range(frames_u8.shape[0])
     ]
@@ -254,6 +293,9 @@ def mega_track_chunk_objects_reference(
     n_valid,
     config: TrackerConfig,
     bucket_extents=None,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the multi-object kernel: `mega_track_chunk_reference`
     for each object on the one shared chunk (F, H, W), with that object's
@@ -265,7 +307,7 @@ def mega_track_chunk_objects_reference(
     for i, (eh, ew) in enumerate(extents):
         r, t = mega_track_chunk_reference(
             frames_u8, bbox[i], template[i, :eh, :ew], t_mean[i], t_std[i],
-            lost_count[i], use_global[i], n_valid[i], config,
+            lost_count[i], use_global[i], n_valid[i], config, highest, score_passes, batch,
         )
         out = template[i].to(torch.float32).clone()
         out[:eh, :ew] = t
@@ -283,13 +325,18 @@ def _to_device_i32(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return host.to(dev)
 
 
-def _n_valid_columns(values, s: int, dev: torch.device) -> torch.Tensor:
-    """(s, 2) int32 on `dev`, each lane's n_valid twice (the last two state
-    fields), from a tensor, a sequence or one count for all, without a
-    blocking copy: a host array goes through pinned memory."""
+def _n_valid_columns(values, s: int, dev: torch.device, batch: int = 1) -> torch.Tensor:
+    """(s, 2) int32 on `dev`, each lane's last frame bound twice (the last two
+    state fields), from a tensor, a sequence or one count for all, without a
+    blocking copy: a host array goes through pinned memory.  The bound is
+    n_valid, or with batch > 1 n_full = (n_valid // batch) * batch: the
+    kernels then score only cadence frames, and a frame is valid there only
+    below n_full (pvot/ops/ncc_mega.py:899-907)."""
     if isinstance(values, torch.Tensor) and values.device == dev:
-        return values.reshape(-1, 1).expand(s, 2).to(torch.int32)
+        v = values.reshape(-1, 1).expand(s, 2).to(torch.int32)
+        return v if batch == 1 else torch.div(v, batch, rounding_mode="floor") * batch
     host = torch.as_tensor(values).reshape(-1, 1).expand(s, 1).to(torch.int32)
+    host = torch.div(host, batch, rounding_mode="floor") * batch
     if bool((host == host[0]).all()):
         return torch.full((s, 2), int(host[0]), dtype=torch.int32, device=dev)
     return _to_device_i32(host.expand(s, 2), dev)
@@ -297,13 +344,14 @@ def _n_valid_columns(values, s: int, dev: torch.device) -> torch.Tensor:
 
 def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std,
             lost_count, use_global, n_valid, config: TrackerConfig, n_blocks: int,
-            stream, extents=None):
+            stream, extents=None, passes: int = 0, batch: int = 1):
     """Run one C entry ("one", "multi" or "objects") on S lanes: frames (S, F,
     H, W) u8, each lane's frames contiguous, lanes `frames.stride(0)` apart (0
     for objects); the states stacked on S, all on frames' device.  extents:
     each lane's true (th, tw) in the template buffer (default: all of it);
-    objects whose extents differ get them as the kernel's extent table.  Returns
-    (CUDA error code, rows (S, F, 10), padded templates (S, th,
+    objects whose extents differ get them as the kernel's extent table.
+    passes: the score tier (0 float32, 1-3 bf16 passes); batch: the cadence.
+    Returns (CUDA error code, rows (S, F, 10), padded templates (S, th,
     round_up4(tw)))."""
     s, f, h, w = frames.shape
     th, tw = template.shape[-2:]
@@ -315,7 +363,7 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
     # int32 and bool parts.  These few small ops run once per chunk.
     state_i = torch.cat([
         bbox.reshape(s, 4), lost_count.reshape(s, 1), use_global.reshape(s, 1),
-        _n_valid_columns(n_valid, s, dev),
+        _n_valid_columns(n_valid, s, dev, batch),
     ], dim=1).to(i32)
     tpl = template.reshape(s, th, tw).to(fl)
     tm = t_mean.reshape(s).to(fl)
@@ -342,7 +390,7 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
     tail = (rows.data_ptr(), config.search_radius_x, config.search_radius_y,
             config.lost_frame_threshold, int(config.enable_global_search),
             f32(config.min_confidence), f32(config.global_confidence),
-            f32(config.strong_confidence), f32(lr), f32(1.0 - lr), stream)
+            f32(config.strong_confidence), f32(lr), f32(1.0 - lr), passes, batch, stream)
     if entry == "objects":
         mixed = any(e != (th, tw) for e in extents)
         ext = _to_device_i32(torch.tensor(extents), dev) if mixed else None
@@ -395,16 +443,26 @@ def mega_track_chunk(
     use_global: torch.Tensor,
     n_valid: int,
     config: TrackerConfig,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Track one chunk of frames (F, H, W) uint8 from the given state.
+    """Track one chunk of frames (F, H, W) uint8 from the given state, at the
+    score tier (highest, score_passes) and the batch cadence of the module
+    docstring.
 
-    On a CUDA device: 2F kernel launches on the current stream, no host
-    synchronisation; `mega_track_chunk.launches` grows by 2F.  On the CPU:
-    the plain version.  Frames past `n_valid` commit nothing."""
+    On a CUDA device: `chunk_launches(F, batch)` kernel launches (2F at batch
+    1) on the current stream, no host synchronisation;
+    `mega_track_chunk.launches` grows by as many, and so does
+    `mega_track_chunk.launches_by_tier[p]` for the tier's pass count p (0:
+    float32).  On the CPU: the plain version.  Frames past `n_valid` commit
+    nothing."""
+    passes = score_tier(highest, score_passes)
+    batch = check_batch(batch)
     if frames_u8.device.type == "cpu":
         return mega_track_chunk_reference(
             frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
-            n_valid, config,
+            n_valid, config, highest, score_passes, batch,
         )
     _check_cuda_inputs(frames_u8, 3, dict(
         bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
@@ -421,14 +479,27 @@ def mega_track_chunk(
         err, rows, tpl_pad = _launch(
             lib, "one", frames_u8[None], bbox, template, t_mean, t_std, lost_count,
             use_global, [int(n_valid)], config, _score_blocks(dev),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, passes=passes, batch=batch,
         )
         _build.check(err, "mega_track_chunk")
-        mega_track_chunk.launches += 2 * f
+        _count(mega_track_chunk, chunk_launches(f, batch), passes)
     return rows[0], tpl_pad[0, :, :tw].contiguous()
 
 
-mega_track_chunk.launches = 0
+def _count(wrapper, n: int, passes: int) -> None:
+    """Add a call's launches to its wrapper's counters."""
+    wrapper.launches += n
+    wrapper.launches_by_tier[passes] += n
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the wrappers' launch counters to 0."""
+    for w in wrappers:
+        w.launches = 0
+        w.launches_by_tier = dict.fromkeys(range(4), 0)
+
+
+reset_launches(mega_track_chunk)
 
 
 def mega_track_chunk_multi(
@@ -441,22 +512,28 @@ def mega_track_chunk_multi(
     use_global: torch.Tensor,
     n_valid,
     config: TrackerConfig,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Track one chunk of S independent streams: frames (S, F, H, W) uint8
     (each stream's frames contiguous; the stream axis may have any stride),
     bbox (S, 4), template (S, th, tw), t_mean, t_std, lost_count, use_global
     and n_valid (S,).  Frames t >= n_valid[s] commit nothing for stream s.
 
-    On a CUDA device: 2F kernel launches on the current stream whatever S
-    is (one score launch over every stream and one commit launch with a block
-    per stream a frame), no host synchronisation;
-    `mega_track_chunk_multi.launches` grows by 2F.  Every score block
+    Tier and cadence as in `mega_track_chunk`.  On a CUDA device:
+    `chunk_launches(F, batch)` kernel launches on the current stream whatever
+    S is (2F at batch 1: one score launch over every stream and one commit
+    launch with a block per stream a frame), no host synchronisation; the
+    counters of `mega_track_chunk_multi` grow as K1's do.  Every score block
     grid-strides over all streams' tiles, so a stream in re-acquisition gets
     the whole card.  On the CPU: the plain version."""
+    passes = score_tier(highest, score_passes)
+    batch = check_batch(batch)
     if frames_u8.device.type == "cpu":
         return mega_track_chunk_multi_reference(
             frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
-            n_valid, config,
+            n_valid, config, highest, score_passes, batch,
         )
     _check_cuda_inputs(frames_u8, 4, dict(
         bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
@@ -476,14 +553,14 @@ def mega_track_chunk_multi(
         err, rows, tpl_pad = _launch(
             lib, "multi", frames_u8, bbox, template, t_mean, t_std, lost_count,
             use_global, n_valid, config, _score_blocks(dev),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, passes=passes, batch=batch,
         )
         _build.check(err, "mega_track_chunk_multi")
-        mega_track_chunk_multi.launches += 2 * f
+        _count(mega_track_chunk_multi, chunk_launches(f, batch), passes)
     return rows, tpl_pad[:, :, :tw].contiguous()
 
 
-mega_track_chunk_multi.launches = 0
+reset_launches(mega_track_chunk_multi)
 
 
 def mega_track_chunk_objects(
@@ -497,6 +574,9 @@ def mega_track_chunk_objects(
     n_valid,
     config: TrackerConfig,
     bucket_extents=None,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Track K objects through one chunk of ONE clip: frames (F, H, W) uint8
     read by every object; bbox (K, 4), template (K, th, tw), t_mean, t_std,
@@ -507,14 +587,17 @@ def mega_track_chunk_objects(
     tracks exactly as `mega_track_chunk` on its own th_k x tw_k template, and
     only that corner of its template changes.
 
-    On a CUDA device: 2F kernel launches on the current stream whatever K
-    is, no host synchronisation; `mega_track_chunk_objects.launches` grows by
-    2F.  On the CPU: the plain version."""
+    Tier and cadence as in `mega_track_chunk`.  On a CUDA device:
+    `chunk_launches(F, batch)` kernel launches on the current stream whatever
+    K is, no host synchronisation; the counters of `mega_track_chunk_objects`
+    grow as K1's do.  On the CPU: the plain version."""
+    passes = score_tier(highest, score_passes)
+    batch = check_batch(batch)
     extents = object_extents(template, bucket_extents)
     if frames_u8.device.type == "cpu":
         return mega_track_chunk_objects_reference(
             frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
-            n_valid, config, bucket_extents,
+            n_valid, config, bucket_extents, highest, score_passes, batch,
         )
     _check_cuda_inputs(frames_u8, 3, dict(
         bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
@@ -537,9 +620,10 @@ def mega_track_chunk_objects(
             lib, "objects", frames_u8.expand(k, f, h, w), bbox, template[:, :bh, :bw],
             t_mean, t_std, lost_count, use_global, n_valid, config,
             _score_blocks(dev), torch.cuda.current_stream(dev).cuda_stream, extents=extents,
+            passes=passes, batch=batch,
         )
         _build.check(err, "mega_track_chunk_objects")
-        mega_track_chunk_objects.launches += 2 * f
+        _count(mega_track_chunk_objects, chunk_launches(f, batch), passes)
     if (bh, bw) == tuple(template.shape[-2:]):
         return rows, tpl_pad[:, :, :bw].contiguous()
     out = template.to(torch.float32).clone()
@@ -547,4 +631,4 @@ def mega_track_chunk_objects(
     return rows, out
 
 
-mega_track_chunk_objects.launches = 0
+reset_launches(mega_track_chunk_objects)

@@ -3,14 +3,18 @@ pvot/ops/ncc_pallas.py `_ncc_pallas_padded` (:406) and `_ncc_argmax_padded`
 (:531) with their entries `ncc_map_pallas` (:424), `ncc_map_pallas_batched`
 (:629), `ncc_region_argmax_pallas` (:554) and the backend adapters
 `pallas_full_fn` / `pallas_region_fn` / `pallas_region_argmax_fn`
-(:785-848), at the f32 tier.
+(:785-848), at both of their tiers.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 pvot_torch/csrc/ncc_pallas.cu (one launch a call, for every lane of it) or
 raise; on a CPU tensor they run the plain PyTorch versions beside them
 (`..._reference`).  The shear and operator forms of the JAX kernel compute
-the same scores, so `shear` selects nothing here; `highest=False` (the fast
-tiers) is not ported and raises, naming ROADMAP A6.
+the same scores, so `shear` selects nothing here.  `highest=False` is the
+`pallas_fast` tier, `_dot_hl3` (pvot/ops/ncc_pallas.py:63-87, :137-147): the
+correlation as 3 bf16 passes, corr(hi w, hi t) + corr(hi w, lo t) + corr(lo
+w, hi t), on the tensor cores (the lane functions' `passes=3`); the window
+moments and the epilogue stay float32.  `pallas_full_fn` scores float32
+whatever it is asked, as JAX's full maps do (pvot/ops/backends.py:212-214).
 
 Lanes.  `ncc_map_lanes` and `region_argmax_lanes` score L lanes in one
 launch: lane l reads images[l] (or the one image for all when images has
@@ -18,7 +22,8 @@ one), its template templates[l] (or the one for all) and its stats, from
 its origin in the image.  That is one frame, N frames against one template
 (the batched form), K objects on one frame, or S streams each on its own.
 `ncc_map_pallas.launches` and `ncc_region_argmax_pallas.launches` count the
-kernels' launches, whichever entry made them.
+kernels' launches, whichever entry made them, and their `launches_by_tier`
+split the count by pass count (0: float32).
 """
 
 from __future__ import annotations
@@ -29,16 +34,23 @@ import torch
 
 from pvot_torch.io.gray import ensure_gray_f32
 from pvot_torch.ops import search as search_ops
+from pvot_torch.ops.ncc_mega import reset_launches
 from pvot_torch.ops.ncc_reference import ncc_scores, template_stats
 
 _LANE_INTS = 6  # x0, y0, rx0, rx1, ry0, ry1 (csrc/ncc_pallas.cu kLane)
 _TILE_H, _TILE_W = 8, 16  # csrc/ncc_pallas.cu kTileH, kTileW
+FAST_PASSES = 3  # the `pallas_fast` tier, `_dot_hl3`
 
 
-def _check_tier(highest: bool) -> None:
-    if not highest:
-        raise NotImplementedError(
-            "highest=False: the fast score tiers are not ported yet (ROADMAP A6)")
+def tier_passes(highest: bool) -> int:
+    """The pass count of a K4/K5 tier: 0 (float32) or 3 (`_dot_hl3`)."""
+    return 0 if highest else FAST_PASSES
+
+
+def _check_passes(passes: int) -> int:
+    if passes not in (0, FAST_PASSES):
+        raise ValueError(f"K4/K5 score at 0 (float32) or {FAST_PASSES} passes, not {passes}")
+    return passes
 
 
 def _as_lanes(t: torch.Tensor, n: int, item_ndim: int, name: str) -> torch.Tensor:
@@ -52,9 +64,9 @@ def _as_lanes(t: torch.Tensor, n: int, item_ndim: int, name: str) -> torch.Tenso
 
 
 def _scores_plain(image: torch.Tensor, templ: torch.Tensor, t_mean, t_std, x0: int, y0: int,
-                  out_h: int, out_w: int) -> torch.Tensor:
+                  out_h: int, out_w: int, passes: int = 0) -> torch.Tensor:
     """One lane's (out_h, out_w) scores from its origin in `image`, pixels
-    past the image read 0."""
+    past the image read 0, at the tier `passes`."""
     th, tw = templ.shape
     region = ensure_gray_f32(image[y0 : y0 + out_h + th - 1, x0 : x0 + out_w + tw - 1])
     pad_h, pad_w = out_h + th - 1 - region.shape[0], out_w + tw - 1 - region.shape[1]
@@ -62,28 +74,31 @@ def _scores_plain(image: torch.Tensor, templ: torch.Tensor, t_mean, t_std, x0: i
         region = torch.nn.functional.pad(region, (0, pad_w, 0, pad_h))
     templ = templ.to(torch.float32)
     tc = templ - t_mean
-    return ncc_scores(region, tc, t_std, torch.sum(tc), float(th * tw))
+    return ncc_scores(region, tc, t_std, torch.sum(tc), float(th * tw), passes)
 
 
-def ncc_map_lanes_reference(images, templates, t_mean, t_std, origins=None, out_shape=None):
+def ncc_map_lanes_reference(images, templates, t_mean, t_std, origins=None, out_shape=None,
+                            passes: int = 0):
     """Plain version of `ncc_map_lanes`: each lane's map by torch ops."""
+    _check_passes(passes)
     n, th, tw, out_h, out_w, origins = _lane_geometry(images, templates, origins, out_shape)
     images = _as_lanes(images, n, 2, "images")
     templates = _as_lanes(templates, n, 2, "templates")
     t_mean = _as_lanes(t_mean.reshape(-1), n, 0, "t_mean")
     t_std = _as_lanes(t_std.reshape(-1), n, 0, "t_std")
     return torch.stack([
-        _scores_plain(images[l], templates[l], t_mean[l], t_std[l], *origins[l], out_h, out_w)
+        _scores_plain(images[l], templates[l], t_mean[l], t_std[l], *origins[l], out_h, out_w,
+                      passes)
         for l in range(n)
     ])
 
 
-def region_argmax_lanes_reference(images, templates, t_mean, t_std, lanes, span):
+def region_argmax_lanes_reference(images, templates, t_mean, t_std, lanes, span,
+                                  passes: int = 0):
     """Plain version of `region_argmax_lanes`: each lane's region scores by
     torch ops, masked to its window, argmax by row-major first occurrence."""
-    out_h, out_w = span
     scores = ncc_map_lanes_reference(images, templates, t_mean, t_std,
-                                     [(x0, y0) for x0, y0, *_ in lanes], span)
+                                     [(x0, y0) for x0, y0, *_ in lanes], span, passes)
     rows = []
     for l, (x0, y0, rx0, rx1, ry0, ry1) in enumerate(lanes):
         bounds = search_ops.WindowBounds(x0 + rx0, x0 + rx1, y0 + ry0, y0 + ry1)
@@ -150,8 +165,9 @@ def _launch_args(images, templates, t_mean, t_std, n: int):
 
 
 def ncc_map_lanes(images, templates, t_mean, t_std, origins: Optional[Sequence] = None,
-                  out_shape: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """K4 over L lanes: (L, out_h, out_w) float32 scores.
+                  out_shape: Optional[Tuple[int, int]] = None, passes: int = 0) -> torch.Tensor:
+    """K4 over L lanes: (L, out_h, out_w) float32 scores at the tier `passes`
+    (0: float32, 3: `_dot_hl3`).
 
     images (L or 1, H, W) or (H, W), uint8 or float32, rows contiguous;
     templates (L or 1, th, tw) or (th, tw); t_mean, t_std (L,), (1,) or 0-d.
@@ -159,10 +175,11 @@ def ncc_map_lanes(images, templates, t_mean, t_std, origins: Optional[Sequence] 
     the positions each lane scores (default the valid map, (H - th + 1, W -
     tw + 1)).  Pixels past the image read 0.  On a CUDA device: one launch,
     no synchronisation; `ncc_map_pallas.launches` grows by 1."""
+    _check_passes(passes)
     n, th, tw, out_h, out_w, origins = _lane_geometry(images, templates, origins, out_shape)
     if images.device.type == "cpu":
         return ncc_map_lanes_reference(images, templates, t_mean, t_std, origins,
-                                       (out_h, out_w))
+                                       (out_h, out_w), passes)
     images, lane_stride, templates, tpl_stride, stats, u8 = _launch_args(
         images, templates, t_mean, t_std, n)
     from pvot_torch.ops import _build
@@ -177,17 +194,19 @@ def ncc_map_lanes(images, templates, t_mean, t_std, origins: Optional[Sequence] 
             images.data_ptr(), u8, h, w, images.stride(-2), lane_stride,
             None if lanes is None else lanes.data_ptr(), n, out_h, out_w,
             templates.data_ptr(), tpl_stride, th, tw, stats[0].data_ptr(),
-            stats[1].data_ptr(), 1, out.data_ptr(),
+            stats[1].data_ptr(), 1, out.data_ptr(), passes,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "ncc_map_pallas")
         ncc_map_pallas.launches += 1
+        ncc_map_pallas.launches_by_tier[passes] += 1
     return out
 
 
 def region_argmax_lanes(images, templates, t_mean, t_std, lanes: Sequence[Sequence[int]],
-                        span: Tuple[int, int]) -> torch.Tensor:
+                        span: Tuple[int, int], passes: int = 0) -> torch.Tensor:
     """K5 over L lanes: (L, 3) float32 rows (best value, x, y), x and y in the
-    image's (map) coordinates, exact in float32.
+    image's (map) coordinates, exact in float32; scores at the tier
+    `passes`, as in `ncc_map_lanes`.
 
     lanes: per lane (x0, y0, rx0, rx1, ry0, ry1): the region origin in the
     image and the window in region coordinates, inclusive.  span: (span_y,
@@ -195,11 +214,13 @@ def region_argmax_lanes(images, templates, t_mean, t_std, lanes: Sequence[Sequen
     the image; positions outside the window score -inf, and ties go to the
     smallest y, then x.  On a CUDA device: one launch, no synchronisation;
     `ncc_region_argmax_pallas.launches` grows by 1."""
+    _check_passes(passes)
     out_h, out_w = span
     n = len(lanes)
     _check_origins([(x0, y0) for x0, y0, *_ in lanes])
     if images.device.type == "cpu":
-        return region_argmax_lanes_reference(images, templates, t_mean, t_std, lanes, span)
+        return region_argmax_lanes_reference(images, templates, t_mean, t_std, lanes, span,
+                                             passes)
     images, lane_stride, templates, tpl_stride, stats, u8 = _launch_args(
         images, templates, t_mean, t_std, n)
     th, tw = templates.shape[-2:]
@@ -219,9 +240,10 @@ def region_argmax_lanes(images, templates, t_mean, t_std, lanes: Sequence[Sequen
             images.data_ptr(), u8, h, w, images.stride(-2), lane_stride, lane_t.data_ptr(), n,
             out_h, out_w, templates.data_ptr(), tpl_stride, th, tw, stats[0].data_ptr(),
             stats[1].data_ptr(), 1, out.data_ptr(), part_val.data_ptr(), part_yx.data_ptr(),
-            done.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            done.data_ptr(), passes, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "ncc_region_argmax_pallas")
         ncc_region_argmax_pallas.launches += 1
+        ncc_region_argmax_pallas.launches_by_tier[passes] += 1
     return out
 
 
@@ -232,24 +254,21 @@ def _stats(templ, t_mean, t_std):
     return templ, t_mean, t_std
 
 
-def ncc_map_pallas_reference(img, templ, t_mean=None, t_std=None) -> torch.Tensor:
+def ncc_map_pallas_reference(img, templ, t_mean=None, t_std=None,
+                             highest: bool = True) -> torch.Tensor:
     """Plain version of `ncc_map_pallas`."""
     templ, t_mean, t_std = _stats(templ, t_mean, t_std)
-    return ncc_map_lanes_reference(img, templ, t_mean, t_std)[0]
+    return ncc_map_lanes_reference(img, templ, t_mean, t_std, passes=tier_passes(highest))[0]
 
 
 def ncc_map_pallas(img, templ, t_mean=None, t_std=None, highest: bool = True,
                    shear: bool = False) -> torch.Tensor:
     """Full valid-mode NCC map: img (H, W) uint8 or float32, templ (th, tw)
     -> (H - th + 1, W - tw + 1) float32, with the reference's epsilons
-    (pvot/ops/ncc_pallas.py:424)."""
+    (pvot/ops/ncc_pallas.py:424); highest=False scores at 3 bf16 passes."""
     del shear
-    _check_tier(highest)
     templ, t_mean, t_std = _stats(templ, t_mean, t_std)
-    return ncc_map_lanes(img, templ, t_mean, t_std)[0]
-
-
-ncc_map_pallas.launches = 0
+    return ncc_map_lanes(img, templ, t_mean, t_std, passes=tier_passes(highest))[0]
 
 
 def ncc_map_pallas_batched(frames, templ) -> torch.Tensor:
@@ -260,11 +279,11 @@ def ncc_map_pallas_batched(frames, templ) -> torch.Tensor:
 
 
 def ncc_region_argmax_pallas_reference(region, templ, bounds, x0: int, y0: int, t_mean=None,
-                                       t_std=None):
+                                       t_std=None, highest: bool = True):
     """Plain version of `ncc_region_argmax_pallas`."""
     templ, t_mean, t_std = _stats(templ, t_mean, t_std)
     return _unpack(_region_argmax(region, templ, t_mean, t_std, bounds, x0, y0,
-                                  region_argmax_lanes_reference))
+                                  region_argmax_lanes_reference, tier_passes(highest)))
 
 
 def ncc_region_argmax_pallas(region, templ, bounds, x0: int, y0: int, t_mean=None, t_std=None,
@@ -274,23 +293,22 @@ def ncc_region_argmax_pallas(region, templ, bounds, x0: int, y0: int, t_mean=Non
     uint8/float32, bounds a WindowBounds in map coordinates, (x0, y0) the
     region's origin in the map.  Returns (best_val float32, x, y int32)
     0-d tensors in map coordinates; an all-masked window gives (-inf, x0,
-    y0)."""
+    y0).  highest=False scores at 3 bf16 passes."""
     del shear
-    _check_tier(highest)
     templ, t_mean, t_std = _stats(templ, t_mean, t_std)
     return _unpack(_region_argmax(region, templ, t_mean, t_std, bounds, x0, y0,
-                                  region_argmax_lanes))
+                                  region_argmax_lanes, tier_passes(highest)))
 
 
-ncc_region_argmax_pallas.launches = 0
+reset_launches(ncc_map_pallas, ncc_region_argmax_pallas)
 
 
-def _region_argmax(region, templ, t_mean, t_std, bounds, x0, y0, fn):
+def _region_argmax(region, templ, t_mean, t_std, bounds, x0, y0, fn, passes):
     th, tw = templ.shape
     span = (region.shape[0] - th + 1, region.shape[1] - tw + 1)
     lane = (0, 0, bounds.min_tx - x0, bounds.max_tx - x0, bounds.min_ty - y0,
             bounds.max_ty - y0)
-    row = fn(region, templ, t_mean, t_std, [lane], span)[0]
+    row = fn(region, templ, t_mean, t_std, [lane], span, passes)[0]
     return torch.stack([row[0], row[1] + x0, row[2] + y0])
 
 
@@ -305,9 +323,10 @@ def _unpack(row: torch.Tensor):
 
 
 def pallas_full_fn(frame_shape, templ_shape, highest: bool = True, shear: bool = False):
-    """Full-map callable (frame, templ, t_mean, t_std) -> map."""
-    del frame_shape, templ_shape, shear
-    _check_tier(highest)
+    """Full-map callable (frame, templ, t_mean, t_std) -> map, float32 at
+    either tier: the fast engine's global maps stay float32
+    (pvot/ops/backends.py:212-214)."""
+    del frame_shape, templ_shape, shear, highest
 
     def full_fn(frame, templ, t_mean, t_std):
         return ncc_map_lanes(frame, templ, t_mean, t_std)[0]
@@ -318,12 +337,13 @@ def pallas_full_fn(frame_shape, templ_shape, highest: bool = True, shear: bool =
 def pallas_region_fn(frame_shape, templ_shape, span_shape, highest: bool = True,
                      shear: bool = False):
     """Region scorer (frame, templ, t_mean, t_std, x0, y0) -> (span_y,
-    span_x) scores, read in place from the frame at (x0, y0)."""
+    span_x) scores, read in place from the frame at (x0, y0), at the tier
+    `highest` selects."""
     del frame_shape, templ_shape, shear
-    _check_tier(highest)
+    passes = tier_passes(highest)
 
     def region_fn(frame, templ, t_mean, t_std, x0, y0):
-        return ncc_map_lanes(frame, templ, t_mean, t_std, [(x0, y0)], span_shape)[0]
+        return ncc_map_lanes(frame, templ, t_mean, t_std, [(x0, y0)], span_shape, passes)[0]
 
     return region_fn
 
@@ -331,13 +351,14 @@ def pallas_region_fn(frame_shape, templ_shape, span_shape, highest: bool = True,
 def pallas_region_argmax_fn(frame_shape, templ_shape, span_shape, highest: bool = True,
                             shear: bool = False):
     """Fused region scorer + masked argmax (frame, templ, t_mean, t_std, x0,
-    y0, bounds) -> (3,) row (best value, x, y) in map coordinates."""
+    y0, bounds) -> (3,) row (best value, x, y) in map coordinates, at the tier
+    `highest` selects."""
     del frame_shape, templ_shape, shear
-    _check_tier(highest)
+    passes = tier_passes(highest)
 
     def region_argmax_fn(frame, templ, t_mean, t_std, x0, y0, bounds):
         lane = (x0, y0, bounds.min_tx - x0, bounds.max_tx - x0, bounds.min_ty - y0,
                 bounds.max_ty - y0)
-        return region_argmax_lanes(frame, templ, t_mean, t_std, [lane], span_shape)[0]
+        return region_argmax_lanes(frame, templ, t_mean, t_std, [lane], span_shape, passes)[0]
 
     return region_argmax_fn

@@ -90,23 +90,75 @@ def corr2_valid(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         return F.conv2d(image[None, None], kernel[None, None])[0, 0]
 
 
-def ncc_scores(region: torch.Tensor, tc: torch.Tensor, t_std, sum_tc, n: float) -> torch.Tensor:
+def score_tier(highest: bool, score_passes: int) -> int:
+    """The correlation's tier as a pass count: 0 for float32 (highest=True,
+    where score_passes is ignored), else score_passes, which must be 1, 2 or
+    3 either way (pvot/ops/ncc_mega.py:868-869)."""
+    if score_passes not in (1, 2, 3):
+        raise ValueError(f"score_passes must be 1, 2 or 3, got {score_passes}")
+    return 0 if highest else int(score_passes)
+
+
+def cli_tier(fast: bool, score_passes=None) -> dict:
+    """The highest / score_passes keywords of a command line's --fast and
+    --score-passes (3 passes unless given)."""
+    return dict(highest=not fast, score_passes=3 if score_passes is None else score_passes)
+
+
+def tier_name(highest: bool = True, score_passes: int = 3) -> str:
+    """bench.py's name of a score tier (bench.py:233-238)."""
+    if highest:
+        return "highest"
+    return "fast_1pass_bf16" if score_passes == 1 else f"fast_{score_passes}pass_bf16_hilo"
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor as float32 values: hi = bf16(x) and lo =
+    bf16(x - hi), both rounded to nearest even (pvot/ops/ncc_mega.py:394-416,
+    pvot/ops/ncc_pallas.py:77-78)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def tiered_corr(region: torch.Tensor, tc: torch.Tensor, passes: int = 0) -> torch.Tensor:
+    """corr(region, tc) at a score tier (pvot/ops/ncc_mega.py:384-440,
+    pvot/ops/ncc_pallas.py:63-87): 0 is float32; with hi/lo the bf16 split,
+    3 passes are corr(hi w, hi t) + corr(hi w, lo t) + corr(lo w, hi t), 2
+    drop the last term and 1 keeps the first alone.  A product of two bf16
+    values is exact in float32, so every tier is exact products summed in
+    full float32."""
+    if passes == 0:
+        return corr2_valid(region, tc)
+    wh, wl = split_bf16(region)
+    th, tl = split_bf16(tc)
+    out = corr2_valid(wh, th)
+    if passes >= 2:
+        out = out + corr2_valid(wh, tl)
+    if passes == 3:
+        out = out + corr2_valid(wl, th)
+    return out
+
+
+def ncc_scores(region: torch.Tensor, tc: torch.Tensor, t_std, sum_tc, n: float,
+               passes: int = 0) -> torch.Tensor:
     """The kernels' score formula over a float32 region (pvot/ops/ncc_mega.py
     :462-470, pvot/ops/ncc_pallas.py:169-176):
 
         (corr(region, tc) - mean * sum_tc) / ((std + 1e-6) * (t_std + 1e-6) * n)
 
     with tc the centered template, sum_tc its sum and std = sqrt(max(var,
-    1e-6)).  The window moments are summed in float64 and rounded to float32
-    once: var = E[x^2] - E[x]^2 cancels on flat windows, where float32 sums
-    lose up to 3.7e-3 of a score (ROADMAP C, plain-version numerics)."""
+    1e-6)); the correlation at the tier `passes` (`tiered_corr`), the rest in
+    float32 at every tier.  The window moments are summed in float64 and
+    rounded to float32 once: var = E[x^2] - E[x]^2 cancels on flat windows,
+    where float32 sums lose up to 3.7e-3 of a score (ROADMAP C, plain-version
+    numerics)."""
     ones = torch.ones(tc.shape, dtype=torch.float64, device=region.device)
     r64 = region.to(torch.float64)
     mean64 = corr2_valid(r64, ones) / n
     var = (corr2_valid(r64 * r64, ones) / n - mean64 * mean64).to(torch.float32)
     mean = mean64.to(torch.float32)
     std = torch.sqrt(torch.clamp(var, min=1e-6))
-    cov = corr2_valid(region, tc) - mean * sum_tc
+    cov = tiered_corr(region, tc, passes) - mean * sum_tc
     return cov / ((std + 1e-6) * (t_std + 1e-6) * n)
 
 

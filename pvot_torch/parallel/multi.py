@@ -21,7 +21,7 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.gray import ensure_gray_f32
 from pvot_torch.ops import search as search_ops
-from pvot_torch.ops.backends import MODE_TO_BACKEND
+from pvot_torch.ops.backends import cuda_region_passes
 from pvot_torch.ops.ncc_pallas import ncc_map_lanes, region_argmax_lanes
 from pvot_torch.ops.ncc_reference import template_stats, template_stats_bucketed
 from pvot_torch.tracker.scan import records_to_output
@@ -236,7 +236,11 @@ def make_multi_step(
     span_x = 2 * config.search_radius_x + 1
     span_y = 2 * config.search_radius_y + 1
     use_region = strategy == "fused" and out_w >= span_x and out_h >= span_y
-    cuda_lanes = MODE_TO_BACKEND.get(backend) == "cuda"
+    # The CUDA engine's lanes take one launch a pass; its region scores run
+    # at the engine's tier (3 bf16 passes for pallas_fast), its full maps in
+    # float32.
+    passes = cuda_region_passes(backend)
+    cuda_lanes = passes is not None
 
     def lane_frame(frame, k):
         return frame[k] if per_object_frames else frame
@@ -257,11 +261,11 @@ def make_multi_step(
                 lanes = [(x0, y0, b.min_tx - x0, b.max_tx - x0, b.min_ty - y0, b.max_ty - y0)
                          for (x0, y0), (_, b, _) in zip(origins, modes)]
                 local = region_argmax_lanes(frame, mc.template, mc.t_mean, mc.t_std, lanes,
-                                            (span_y, span_x))
+                                            (span_y, span_x), passes)
             else:
                 if cuda_lanes:  # one K4 launch over every lane's region
                     scores = ncc_map_lanes(frame, mc.template, mc.t_mean, mc.t_std, origins,
-                                           (span_y, span_x))
+                                           (span_y, span_x), passes)
                 else:
                     scores = [region_fn(lane_frame(frame, k), mc.template[k], mc.t_mean[k],
                                         mc.t_std[k], x0, y0) for k, (x0, y0) in enumerate(origins)]

@@ -13,6 +13,14 @@ chunks: the records come to the host once, at the end.  The JAX version pads
 the tail chunk to one static length; here the tail chunk is simply shorter,
 which commits the same frames.  Global frames commit on the card (no poison
 mode, no rollback, no support probe: ROADMAP R1, R2).
+
+Every driver takes the score tier of pvot/tracker/mega.py's
+`mega_video_scan` (:129-173): highest=True scores in float32, highest=False
+at `score_passes` bf16 passes (1, 2 or 3).  `batch` > 1 runs the look-ahead
+cadence in the kernels (pvot/tracker/mega.py:526-589): chunks are cut on
+batch boundaries, and the records equal pvot.tracker.scan.
+track_video_batched's, leftover tail included; any batch >= 1 runs there,
+where JAX sends a batch that is not a power of two to that fallback.
 """
 
 from __future__ import annotations
@@ -24,9 +32,10 @@ import torch
 
 from pvot_torch.config import TrackerConfig
 from pvot_torch.ops.ncc_mega import (
-    O_BH, O_BW, O_BX, O_BY, O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG,
+    O_BH, O_BW, O_BX, O_BY, O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, check_batch,
     mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects,
 )
+from pvot_torch.ops.ncc_reference import score_tier
 from pvot_torch.ops.ncc_reference import template_stats, template_stats_bucketed
 from pvot_torch.tracker.state import StepOutput, TrackerState
 from pvot_torch.tracker.step import host_read
@@ -65,31 +74,46 @@ def _rows_to_output(rows: np.ndarray) -> StepOutput:
     )
 
 
+def _chunk_length(chunk_size: int, batch: int) -> int:
+    """Frames a chunk: chunk_size cut down to a multiple of batch (at least
+    one batch), so that chunks start on batch boundaries
+    (pvot/tracker/mega.py:568-570)."""
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    return max(batch, chunk_size // batch * batch)
+
+
 def track_video_mega(
     frames,
     state: TrackerState,
     config: TrackerConfig = TrackerConfig(),
     chunk_size: int = 256,
     device=None,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[TrackerState, StepOutput]:
     """Track a uint8 gray video (F, H, W) chunk by chunk on `device` (default:
-    the state's device).  `frames` may be numpy or a tensor; a tensor already
-    on `device` is not copied.  Returns the final state (on `device`) and the
+    the state's device), at the score tier and batch cadence of the module
+    docstring.  `frames` may be numpy or a tensor; a tensor already on
+    `device` is not copied.  Returns the final state (on `device`) and the
     per-frame records, as pvot.tracker.mega.track_video_mega does."""
+    score_tier(highest, score_passes)
+    batch = check_batch(batch)
     device = torch.device(device) if device is not None else state.template.device
     frames = torch.as_tensor(frames, device=device)
     if frames.ndim != 3 or frames.dtype != torch.uint8:
         raise ValueError(f"expected (F, H, W) uint8 frames, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
-    if chunk_size < 1:
-        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    cs = _chunk_length(chunk_size, batch)
     cur = state.to(device)
     all_rows = []
-    for start in range(0, frames.shape[0], chunk_size):
-        chunk = frames[start : start + chunk_size]
+    for start in range(0, frames.shape[0], cs):
+        chunk = frames[start : start + cs]
         rows, tplout = mega_track_chunk(
             chunk, torch.stack(list(cur.bbox)), cur.template, cur.t_mean,
             cur.t_std, cur.lost_count, cur.use_global, chunk.shape[0], config,
+            highest, score_passes, batch,
         )
         cur = _state_from_chunk(rows, tplout)
         all_rows.append(rows)
@@ -103,14 +127,18 @@ def mega_chunk_step_multi(
     states: TrackerState,
     n_valid,
     config: TrackerConfig,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, TrackerState]:
     """One chunk of S streams (pvot/tracker/mega.py:183): chunk (S, C, H, W)
     uint8 on the states' device, a stacked state, n_valid per stream (S,) or
-    one count for all.  Returns (rows (S, C, 10) on the device, the
-    chunk-final stacked state)."""
+    one count for all; tier and cadence as in track_video_mega.  Returns
+    (rows (S, C, 10) on the device, the chunk-final stacked state)."""
     rows, tplout = mega_track_chunk_multi(
         chunk, torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
         states.t_std, states.lost_count, states.use_global, n_valid, config,
+        highest, score_passes, batch,
     )
     return rows, _state_from_chunk(rows, tplout)
 
@@ -122,21 +150,21 @@ def track_streams_mega(
     chunk_size: int = 256,
     batch: int = 1,
     device=None,
+    highest: bool = True,
+    score_passes: int = 3,
 ) -> Tuple[TrackerState, StepOutput]:
     """Track S independent pre-decoded streams (S, F, H, W) uint8 together on
     `device` (default: the states' device): every chunk is one
-    `mega_track_chunk_multi` call for all S streams.
+    `mega_track_chunk_multi` call for all S streams, at the tier and cadence
+    of track_video_mega (each stream's records are those of
+    track_video_mega on it alone).
 
     `states` is a stacked state (pvot_torch.parallel.multi.init_multi_state).
     Returns (final stacked state on `device`, StepOutput with the (F, S)
-    leading layout), as pvot.tracker.mega.track_streams_mega does.  The
-    look-ahead batch cadence is not ported yet: `batch` > 1 raises."""
-    if batch != 1:
-        raise NotImplementedError(
-            f"batch={batch}: the look-ahead batch cadence is not ported yet (ROADMAP A7)"
-        )
-    if chunk_size < 1:
-        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    leading layout), as pvot.tracker.mega.track_streams_mega does."""
+    score_tier(highest, score_passes)
+    batch = check_batch(batch)
+    cs = _chunk_length(chunk_size, batch)
     device = torch.device(device) if device is not None else states.template.device
     videos = torch.as_tensor(videos, device=device)
     if videos.ndim != 4 or videos.dtype != torch.uint8:
@@ -147,9 +175,10 @@ def track_streams_mega(
         raise ValueError(f"{s} videos for {int(states.t_mean.shape[0])} states")
     cur = states.to(device)
     all_rows = []
-    for start in range(0, f, chunk_size):
-        chunk = videos[:, start : start + chunk_size]
-        rows, cur = mega_chunk_step_multi(chunk, cur, chunk.shape[1], config)
+    for start in range(0, f, cs):
+        chunk = videos[:, start : start + cs]
+        rows, cur = mega_chunk_step_multi(chunk, cur, chunk.shape[1], config, highest,
+                                          score_passes, batch)
         all_rows.append(rows)
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
@@ -174,16 +203,20 @@ def mega_chunk_step_objects(
     n_valid,
     config: TrackerConfig,
     extents=None,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
 ) -> Tuple[torch.Tensor, TrackerState]:
     """One chunk of K objects over one clip (pvot/tracker/mega.py:242): chunk
     (C, H, W) uint8 on the states' device, a stacked state, n_valid for all
     objects (the one clip's valid frames).  extents: `bucket_extents` of the
-    states, for templates of mixed sizes.  Returns (rows (K, C, 10) on the
-    device, the chunk-final stacked state)."""
+    states, for templates of mixed sizes; tier and cadence as in
+    track_video_mega.  Returns (rows (K, C, 10) on the device, the
+    chunk-final stacked state)."""
     rows, tplout = mega_track_chunk_objects(
         chunk, torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
         states.t_std, states.lost_count, states.use_global, n_valid, config,
-        bucket_extents=extents,
+        bucket_extents=extents, highest=highest, score_passes=score_passes, batch=batch,
     )
     return rows, _state_from_chunk(rows, tplout, bucketed=extents is not None)
 
@@ -194,10 +227,13 @@ def track_objects_mega(
     config: TrackerConfig = TrackerConfig(),
     chunk_size: int = 256,
     device=None,
+    highest: bool = True,
+    score_passes: int = 3,
 ) -> Tuple[TrackerState, StepOutput]:
     """Track K objects through ONE pre-decoded uint8 clip (F, H, W) on
     `device` (default: the states' device): every chunk is one
-    `mega_track_chunk_objects` call for all K objects.
+    `mega_track_chunk_objects` call for all K objects, at the score tier of
+    track_video_mega.
 
     `states` is a stacked state: one template size
     (pvot_torch.parallel.multi.init_multi_state), or mixed sizes in a shared
@@ -205,6 +241,7 @@ def track_objects_mega(
     pvot/tracker/mega.py:1063-1068 does.  Returns (final stacked state on
     `device`, StepOutput with the (F, K) leading layout), as
     pvot.tracker.mega.track_objects_mega does in its in-kernel global mode."""
+    score_tier(highest, score_passes)
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     device = torch.device(device) if device is not None else states.template.device
@@ -218,7 +255,8 @@ def track_objects_mega(
     all_rows = []
     for start in range(0, frames.shape[0], chunk_size):
         chunk = frames[start : start + chunk_size]
-        rows, cur = mega_chunk_step_objects(chunk, cur, chunk.shape[0], config, extents)
+        rows, cur = mega_chunk_step_objects(chunk, cur, chunk.shape[0], config, extents,
+                                            highest, score_passes)
         all_rows.append(rows)
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, k, 10), np.float32))

@@ -29,7 +29,7 @@ from pvot.ops.search import WindowBounds as JaxBounds
 from pvot_torch.config import TrackerConfig
 from pvot_torch.ops import backends as tbackends
 from pvot_torch.ops import ncc_pallas as tp
-from pvot_torch.ops.ncc_reference import full_f32
+from pvot_torch.ops.ncc_reference import full_f32, template_stats
 from pvot_torch.ops.search import WindowBounds
 
 MAP_ATOL = 2e-5
@@ -171,10 +171,20 @@ def test_wrappers_check_device_and_tier():
     with pytest.raises(ValueError, match="negative region origin"):
         tp.region_argmax_lanes(img, templ, torch.zeros(1), torch.ones(1), [(0, -2, 0, 4, 0, 4)],
                                (5, 5))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tp.ncc_map_pallas(img, templ, highest=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tp.pallas_region_argmax_fn((20, 20), (4, 4), (5, 5), highest=False)
+    # highest=False is the 3-pass tier (`_dot_hl3`), the plain version at 3
+    # passes on the CPU; K4/K5 have no other bf16 tier.
+    img = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (20, 20), np.uint8))
+    t_mean, t_std = template_stats(templ)
+    fast = tp.ncc_map_pallas(img, templ, highest=False)
+    assert torch.equal(fast, tp.ncc_map_lanes_reference(img, templ, t_mean, t_std, passes=3)[0])
+    assert not torch.equal(fast, tp.ncc_map_pallas(img, templ))
+    bounds = WindowBounds(1, 4, 2, 5)
+    row = tp.pallas_region_argmax_fn((20, 20), (4, 4), (5, 5), highest=False)(
+        img, templ, t_mean, t_std, 0, 1, bounds)
+    assert torch.equal(row, tp.region_argmax_lanes_reference(
+        img, templ, t_mean, t_std, [(0, 1, 1, 4, 1, 4)], (5, 5), passes=3)[0])
+    with pytest.raises(ValueError, match="passes"):
+        tp.ncc_map_lanes(img, templ, t_mean, t_std, passes=2)
 
 
 # --- The torch-ops engines against pvot.ops.ncc_matmul.
@@ -258,16 +268,14 @@ def test_bucketed_engines_match_jax(extent):
 def test_every_jax_mode_name_resolves():
     """The port knows every mode name of pvot/ops/backends.py:46-103: the
     Pallas family is the CUDA engine (K4 maps, K5 fused argmax within JAX's
-    span gate), the fast tiers raise naming A6, unknown names raise."""
+    span gate; pallas_fast its 3-pass tier), fast and xla_fast the torch-ops
+    engine with 3-pass region scores, unknown names raise."""
     assert set(tbackends.MODE_TO_BACKEND) == set(jbackends.MODE_TO_BACKEND)
     cfg = TrackerConfig(search_radius_x=12, search_radius_y=12)
     for name, jname in jbackends.MODE_TO_BACKEND.items():
-        if jname in ("xla_fast", "pallas_fast"):
-            with pytest.raises(NotImplementedError, match="A6"):
-                tbackends.get_backend(name, (120, 160), (16, 16), cfg)
-            continue
         full_fn, region_fn, argmax_fn = tbackends.get_backend(name, (120, 160), (16, 16), cfg)
-        cuda = jname in ("pallas", "pallas_shear", "auto")
+        cuda = jname in ("pallas", "pallas_shear", "auto", "pallas_fast")
+        assert (tbackends.cuda_region_passes(name) is not None) == cuda, name
         assert (argmax_fn is not None) == cuda, name
         module = full_fn.__module__
         if cuda:

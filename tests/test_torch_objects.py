@@ -290,9 +290,14 @@ def test_serve_objects_empty_stream(cases):
     assert out.bbox.shape == (0, 4, 4) and out.score.shape == (0, 4)
     assert out.used_global.shape == out.updated.shape == (0, 4)
     np.testing.assert_array_equal(final.bbox_x.numpy(), start["bbox_x"])
-    with pytest.raises(NotImplementedError, match="A6"):
+    # The bf16 tiers serve too (nothing to serve here); a tier the kernels do
+    # not have raises.
+    _, fast = pvot_torch.serve_objects(iter([]), state_from_numpy(start, device="cpu"),
+                                       frames.shape[1:], highest=False, score_passes=1)
+    assert fast.bbox.shape == (0, 4, 4)
+    with pytest.raises(ValueError, match="score_passes"):
         pvot_torch.serve_objects(iter([]), state_from_numpy(start, device="cpu"),
-                                 frames.shape[1:], highest=False)
+                                 frames.shape[1:], highest=False, score_passes=4)
 
 
 # --- pvot-torch-serve objects mode (synthetic stream: SyntheticSpec(320, 200,

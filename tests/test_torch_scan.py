@@ -405,8 +405,24 @@ def test_cli_records_video(tmp_path, capsys, monkeypatch):
     assert (tmp_path / "output" / "synthetic_shared.mp4").stat().st_size > 0
 
 
+@pytest.mark.parametrize("flag", ["--fast", "--pallas_fast"])
+def test_cli_fast_modes_run(tmp_path, capsys, monkeypatch, flag):
+    """The fast engines run through the CLI (their trajectories are held to
+    JAX in tests/test_torch_tiers.py)."""
+    from pvot_torch.cli.main import main
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DISPLAY", raising=False)
+    x, y, _, _ = target_bbox(CLI_SPEC, 0)
+    assert main(["--synthetic", "160x120x6", "--first", "--roi", f"{x + 32},{y + 32},16,16",
+                 "--search-radius", "12", "--device", "cpu", "--no-display", flag]) == 0
+    out = capsys.readouterr().out
+    assert f"Tracking mode: {flag[2:]}" in out
+    assert "Interactive tracking summary: frames=6" in out
+
+
 @pytest.mark.parametrize("args,item", [
-    (["--fast"], "A6"), (["--pallas_fast"], "A6"), (["--host"], "A11"),
+    (["--host"], "A11"),
     ([], "A11"),  # no --roi: the JAX CLI opens its GUI selector
 ])
 def test_cli_not_ported_exits_2(tmp_path, capsys, monkeypatch, args, item):

@@ -30,6 +30,7 @@ from pvot.tracker.state import init_state as jax_init_state
 from pvot_torch.convert import state_from_numpy, state_to_numpy
 from pvot_torch.io.serving import _StreamFeed, serve_streams, serve_streams_grouped
 from pvot_torch.parallel.multi import init_multi_state, stack_states, unstack_state
+from pvot_torch.tracker.scan import track_video_batched
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(search_radius_x=8, search_radius_y=8)
@@ -98,8 +99,16 @@ def test_track_streams_mega_matches_jax(streams):
         want = type(jo)(*(np.asarray(v)[:n] for v in jo))
         _assert_outputs(type(out)(*(v[:, s] for v in out)), want)
     assert final.template.shape == (3, 16, 16)
-    with pytest.raises(NotImplementedError, match="A7"):
-        pvot_torch.track_streams_mega(videos, _stacked(streams), batch=2, device="cpu")
+    # The look-ahead cadence: each stream's records are the batched scan
+    # engine's on that stream alone (held frames and the leftover tail too).
+    _, batched = pvot_torch.track_streams_mega(
+        videos, _stacked(streams), pvot_torch.TrackerConfig(**KW), chunk_size=4, batch=2,
+        device="cpu")
+    for s in range(3):
+        _, want = track_video_batched(
+            videos[s], state_from_numpy(streams[s][1], device="cpu"),
+            pvot_torch.TrackerConfig(**KW), batch_size=2)
+        _assert_outputs(type(batched)(*(v[:, s] for v in batched)), want)
 
 
 @pytest.mark.parametrize("depth", [1, 2])
@@ -173,13 +182,16 @@ def test_stream_feed_holds_after_end(monkeypatch, use_native):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(backend="xla"), "A15"), (dict(highest=False), "A6"),
+    (dict(backend="xla"), "A15"), (dict(highest=False, score_passes=4), "score_passes"),
     (dict(devices=["cpu", "cpu"]), "A12"),
 ])
 def test_serving_options_not_ported_raise(streams, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Options the port does not have raise naming their ROADMAP item; a score
+    tier the kernels do not have raises ValueError, as in JAX."""
+    error = ValueError if item == "score_passes" else NotImplementedError
+    with pytest.raises(error, match=item):
         serve_streams([iter(streams[0][0][1:])], _stacked(streams[:1]), (94, 250), **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         serve_streams_grouped([iter(streams[0][0][1:])], [state_from_numpy(streams[0][1], device="cpu")],
                               [(94, 250)], **kwargs)
 
@@ -254,7 +266,7 @@ def test_cli_synthetic_streams_write_trajectories(tmp_path):
 
 @pytest.mark.parametrize("args,item", [
     (("--synthetic", "200x120x3", "--scan-backend", "xla"), "A15"),
-    (("--synthetic", "200x120x3", "--fast"), "A6"),
+    (("--synthetic", "200x120x3", "--score-passes", "1"), "needs --fast"),
     (("--synthetic", "200x120x3", "--devices", "2"), "A12"),
 ])
 def test_cli_not_ported_modes_exit_2(tmp_path, args, item):

@@ -5,9 +5,12 @@ CUDA device and nvcc, imports nothing of JAX or the `pvot` package, and
 exits nonzero on any failure.  Phases, in order, none of them caught:
 
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA sources (pvot_torch/csrc) and print the build seconds,
-     registers and score blocks per SM; hold the wrapper's copy of the
-     kernel's shared-memory plan (stage_rows) to the kernel's;
+  2. build the CUDA sources (pvot_torch/csrc, one nvcc per source, at once)
+     and print the build seconds of each source, the production kernels'
+     registers, spills and score blocks per SM beside the parent tree's
+     (PR 5's, before the K1 body moved into mega_body.cuh) and the ladder's
+     and probes' registers; hold the wrapper's copy of the kernel's
+     shared-memory plan (stage_rows) to the kernel's;
   3. hold the chunk kernel K1 against its plain PyTorch version on the card,
      TF32 off, under the tracker's equality contract (pvot/tracker/mega.py
      _outputs_equal, restated): bbox, updated, used_global, lost and
@@ -108,16 +111,34 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      K5 and the K4 region (321x321, 1080p/160) timed at 3 passes;
  21. the batch cadence: track_video_mega(batch=4) over 2047 frames of the
      bench clip (a 3-frame tail), equal to track_video_batched on the plain
-     engine, launches 2 per batch plus 1 for the tail;
- 22. print the kernels' JSON line (each kernel's time beside its plain
+     engine, launches 2 per batch plus 1 for the tail; its bound per frame
+     from the cadence frames' windows and every frame's record;
+ 22. K1's rung ladder (pvot_torch.tools.mega_breakdown, csrc/mega_breakdown.cu):
+     on a 64-frame chunk of the bench clip at every tier, the `full` rung's
+     records and template bit-equal to mega_track_chunk's, `full` and
+     `argmax` against their plain versions under the contract, every earlier
+     rung's checksum equal to its plain version's (integer rungs exactly,
+     float rungs within 1e-4 relative); then the ladder timed at every tier
+     (720p/80/r60, chunk 512, global search off as in the JAX ladder), the
+     counters reset just before: per-rung us a frame (CUDA events) with the
+     score and commit kernels' device us (torch.profiler), the deltas, the
+     production K1 beside the `full` rung, and K1's bound at each tier;
+ 23. the global-strip probes (pvot_torch.tools.global_strip_probe,
+     csrc/strip_probe.cu) on their own inputs and the border clip, counters
+     reset just before: each kernel against its plain version and the numpy
+     oracle (value within 1e-5 relative, (y, x) exactly; the refetch sums
+     exactly), and their device us a call;
+ 24. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
      FP32 peak, or at the bf16 tensor-core peak times passes for a tier, and
-     its bytes at the memory rate, counted from this run's records;
-     `library_ms` is null, as no PyTorch call computes a chunk of tracking
-     or a masked NCC argmax, and `conv2d_corr_ms` times F.conv2d on the
-     correlation term alone as a yardstick, in bf16 for the tiers; each
-     kernel's `tiers` holds the same fields per tier), the card's line, and
-     last the result line.
+     its bytes at the memory rate, counted from this run's records; for the
+     ladder its `full` rung's, which is K1; for the strip probes their box
+     sums' and slab sums' operations at the FP32 peak and the bytes they
+     read; `library_ms` is null, as no PyTorch call computes a chunk of
+     tracking, a masked NCC argmax, a strip search or a conditional slab
+     sum, and `conv2d_corr_ms` times F.conv2d on the correlation term alone
+     as a yardstick, in bf16 for the tiers; each kernel's `tiers` holds the
+     same fields per tier), the card's line, and last the result line.
 
 TF32 is off from phase 3 on, except in phase 15.
 """
@@ -198,6 +219,64 @@ def stacked_args(states):
     cols = zip(*[(torch.stack(list(s.bbox)), s.template, s.t_mean, s.t_std,
                   s.lost_count, s.use_global) for s in states])
     return tuple(torch.stack(c) for c in cols)
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    score_kernel<1,1,0,6> (kWhole, kOne, kExt, kStage) or ncc_kernel<h,1,0>."""
+    m = re.search(r"\d([a-z][a-z_]*?_kernel(?:_tier)?)(?:I((?:L[bi]\d+E|[a-z])+)E)?E", mangled)
+    if not m:
+        return mangled
+    args = [a or b for a, b in re.findall(r"L[bi](\d+)E|([a-z])", m.group(2) or "")]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_entries(log: str) -> dict:
+    """{source: {kernel label: (registers, spill stores, spill loads)}} from
+    the build log (one `== source` section per nvcc)."""
+    out, unit, label, spills = {}, None, None, (0, 0)
+    for line in log.splitlines():
+        if line.startswith("== "):
+            unit = line[3:].strip()
+            out[unit] = {}
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            label, spills = kernel_label(m.group(1)), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and label and unit:
+            out[unit][label] = (int(m.group(1)), *spills)
+            label = None
+    return out
+
+
+# The parent tree's production kernels (PR 5, before the K1 body moved into
+# mega_body.cuh): registers, spill stores and spill loads in bytes as that
+# tree's chip_smoke.py phase 2 printed them from nvcc's -Xptxas -v, and its
+# score blocks per SM (template side, lanes: float32 / 1 / 3 passes), on an
+# NVIDIA H100 80GB HBM3 at 700 W with CUDA 12.8.
+PARENT_PTXAS = {
+    "score_kernel_tier<0,0,0,3>": (64, 0, 0), "score_kernel_tier<1,0,0,3>": (64, 0, 0),
+    "score_kernel_tier<0,0,1,3>": (64, 28, 24), "score_kernel_tier<1,0,1,3>": (64, 0, 0),
+    "score_kernel_tier<0,1,0,3>": (62, 0, 0), "score_kernel_tier<1,1,0,3>": (59, 0, 0),
+    "score_kernel_tier<0,0,0,2>": (64, 0, 0), "score_kernel_tier<1,0,0,2>": (63, 0, 0),
+    "score_kernel_tier<0,0,1,2>": (64, 0, 0), "score_kernel_tier<1,0,1,2>": (64, 0, 0),
+    "score_kernel_tier<0,1,0,2>": (62, 0, 0), "score_kernel_tier<1,1,0,2>": (64, 0, 0),
+    "score_kernel_tier<0,0,0,1>": (64, 0, 0), "score_kernel_tier<1,0,0,1>": (63, 0, 0),
+    "score_kernel_tier<0,0,1,1>": (64, 0, 0), "score_kernel_tier<1,0,1,1>": (64, 0, 0),
+    "score_kernel_tier<0,1,0,1>": (61, 0, 0), "score_kernel_tier<1,1,0,1>": (64, 0, 0),
+    "score_kernel<0,0,0>": (64, 60, 56), "score_kernel<1,0,0>": (64, 4, 4),
+    "score_kernel<0,0,1>": (98, 0, 0), "score_kernel<1,0,1>": (64, 0, 0),
+    "score_kernel<0,1,0>": (97, 0, 0), "score_kernel<1,1,0>": (64, 0, 0),
+    "commit_kernel<0,0>": (64, 0, 0), "commit_kernel<0,1>": (63, 0, 0),
+    "commit_kernel<1,0>": (64, 0, 0), "commit_kernel<1,1>": (64, 0, 0),
+    "lookahead_kernel": (22, 0, 0), "ncc_kernel<f,1,3>": (64, 0, 0),
+    "ncc_kernel<f,1,0>": (43, 0, 0), "ncc_kernel<h,1,3>": (64, 0, 0),
+    "ncc_kernel<h,1,0>": (43, 0, 0), "ncc_kernel<f,0,3>": (61, 0, 0),
+    "ncc_kernel<f,0,0>": (44, 0, 0), "ncc_kernel<h,0,3>": (57, 0, 0),
+    "ncc_kernel<h,0,0>": (44, 0, 0),
+}
+PARENT_BLOCKS_PER_SM = {(80, 1): (2, 2, 2), (80, 8): (2, 2, 2), (160, 1): (1, 1, 1),
+                        (256, 1): (1, 1, 1)}
 
 
 def time_ms(fn, repeats: int) -> float:
@@ -323,6 +402,62 @@ def check_k5(dev, clip, rng, passes: int = 0) -> float:
     return err
 
 
+def check_ladder(dev, spec, frames) -> tuple:
+    """Phase 22's checks of K1's rung ladder on a 64-frame chunk of the bench
+    clip from its ground-truth box, global search off, at every tier: the
+    CUDA `full` rung's records and template bit-equal to mega_track_chunk's;
+    `full` and `argmax` against their plain versions under the contract;
+    every earlier rung's checksum against its plain version's (integer rungs
+    exactly, float rungs within CHECKSUM_RTOL).  Returns (the contract's
+    largest difference, the checksums' largest relative difference, the
+    plain `full` rung's ms a frame at float32)."""
+    from pvot_torch.bench import state_at
+    from pvot_torch.ops.ncc_mega import mega_track_chunk
+    from pvot_torch.tools import mega_breakdown as bd
+
+    config = bd.local_config()
+    state = state_at(spec, frames, 0, dev)
+    chunk = torch.from_numpy(frames[1:65]).to(dev)
+    err = rel = 0.0
+    plain = {}
+    for tier in bd.TIERS:
+        for rung in bd.RUNGS:
+            got = bd.mega_breakdown_chunk(rung, chunk, state, config, tier)
+            # empty .. score_box do not depend on the tier.
+            key = (rung, tier if rung in ("score", "argmax", "full") else None)
+            if key not in plain:
+                plain[key] = bd.mega_breakdown_reference(rung, chunk, state, config, tier)
+            if rung in ("argmax", "full"):
+                err = max(err, compare(f"ladder {tier} {rung} rung vs plain", got, plain[key]))
+            else:
+                rel = max(rel, bd.checksums_agree(rung, got[0], plain[key][0]))
+        full = bd.mega_breakdown_chunk("full", chunk, state, config, tier)
+        k1 = mega_track_chunk(*chunk_args(chunk, state, config), **bd.tier_kw(tier))
+        if not (torch.equal(full[0], k1[0]) and torch.equal(full[1], k1[1])):
+            raise AssertionError(f"ladder {tier}: the full rung differs from mega_track_chunk")
+        print(f"ladder {tier}: full rung bit-equal to mega_track_chunk over 64 frames; "
+              f"checksums of empty .. score equal to the plain versions' (largest relative "
+              f"difference so far {rel:.3g}, float rungs within {bd.CHECKSUM_RTOL})")
+    plain_ms = time_ms(lambda: bd.mega_breakdown_reference("full", chunk, state, config), 1) / 64
+    return err, rel, plain_ms
+
+
+def check_strip_probes(dev) -> dict:
+    """Phase 23's checks: each probe of pvot_torch.tools.global_strip_probe on
+    its input (the border clip included) against the numpy oracle and the
+    plain version.  Returns {kernel: largest |kernel - plain|}."""
+    from pvot_torch.tools import global_strip_probe as gsp
+
+    errs = {"strip_best": 0.0, "slab_refetch": 0.0}
+    for name, frames in gsp.probe_inputs():
+        res = gsp.run_probe(name, frames, dev)
+        for kernel, e in res["max_abs_err"].items():
+            errs[kernel] = max(errs[kernel], e)
+        print(f"strip probe {name}: {res['got']} equal to the plain version and the oracle "
+              f"(largest relative value difference {res['max_rel_err']:.3g} <= {gsp.VALUE_RTOL})")
+    return errs
+
+
 def profiled(fn, kernel: str):
     """fn() under torch.profiler: (device ms per launch of the CUDA kernels
     whose name holds `kernel`, or 0.0 if the profiler saw none; {kernel name:
@@ -407,13 +542,14 @@ def main() -> int:
     def reset_counts():
         reset_launches(*kernels)
 
-    def chunk_bound(lanes, n_steps, passes=0, shared_frame=False):
+    def chunk_bound(lanes, n_steps, passes=0, shared_frame=False, extra_bytes=0):
         """(ms per step, what bounds it) of the least time for lanes [(start
         bbox, host rows (F, 10), n_valid, frame shape, template shape,
         config)], the correlation at the tier `passes` (0: float32).  Bytes:
         each scored frame's window (the whole u8 frame on a global step) read
         once, the union of the lanes' windows where they share one frame (K3),
-        the template read and written, the records written."""
+        the template read and written, the records written, and
+        `extra_bytes`."""
         fma = n_bytes = 0
         windows = []
         for start, rows, nv, fshape, tshape, cfg in lanes:
@@ -427,7 +563,7 @@ def main() -> int:
                            for t in range(max(len(lane) for lane in windows)))
         else:
             n_bytes += sum(ww * wh for lane in windows for _, _, ww, wh in lane)
-        least, by = bound_ms(fma, n_bytes, passes)
+        least, by = bound_ms(fma, n_bytes + extra_bytes, passes)
         return least / n_steps, by
 
     def windows_of(clip, start, rows, th, tw, radius):
@@ -459,22 +595,27 @@ def main() -> int:
     lib = _build.load_library()
     print(f"build: {_build.build_info['path']} loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_info['seconds']:.1f} s)")
-    for line in _build.build_info["log"].splitlines():
-        entry = re.search(r"(score_kernel_tier|score_kernel|commit_kernel|lookahead_kernel)"
-                          r"(?:I((?:L[bi]\d+E)+)E)?", line)
-        ncc = re.search(r"ncc_kernelI([hf])Lb([01])ELi(\d)E", line)
-        if "Compiling entry" in line and ncc:  # ncc_kernel<pixel type, kArgmax, kPasses>
-            print(f"  ptxas: ncc_kernel<{'u8' if ncc.group(1) == 'h' else 'f32'}, "
-                  f"{'K5' if ncc.group(2) == '1' else 'K4'}, passes {ncc.group(3)}>")
-        elif "Compiling entry" in line and entry:  # score_kernel<kWhole, kOne, kExt> etc.
-            flags = ",".join(re.findall(r"L[bi](\d+)", entry.group(2) or ""))
-            print(f"  ptxas: {entry.group(1)}" + (f"<{flags}>" if flags else ""))
-        elif "registers" in line or "bytes stack" in line:
-            print("  ptxas:", line.strip())
+    print("  compile seconds by source (in parallel): " + ", ".join(
+        f"{unit} {sec:.1f}" for unit, sec in _build.build_info["units"].items()))
+    entries = ptxas_entries(_build.build_info["log"])
+    for unit in ("ncc_mega.cu", "ncc_pallas.cu"):  # the production kernels, beside PR 5's
+        for label, figures in entries.get(unit, {}).items():
+            parent = PARENT_PTXAS.get(re.sub(r"^((?:score|commit)_kernel\w*<.*),6>$", r"\1>",
+                                             label))
+            verdict = ("not recorded" if parent is None else
+                       "the same" if parent == figures else f"DIFFERENT: {parent}")
+            print(f"  ptxas {unit} {label}: {figures[0]} registers, spill stores/loads "
+                  f"{figures[1]}/{figures[2]} bytes; parent: {verdict}")
+    for unit in ("mega_breakdown.cu", "strip_probe.cu"):
+        print(f"  ptxas {unit} (registers, spill stores/loads): " + "; ".join(
+            f"{label} {r} {st}/{ld}" for label, (r, st, ld) in entries.get(unit, {}).items()))
     for th, lanes in ((80, 1), (80, 8), (160, 1), (256, 1)):
+        blocks = tuple(lib.pvot_mega_score_blocks_per_sm(th, th, lanes, p) for p in (0, 1, 3))
+        parent = PARENT_BLOCKS_PER_SM.get((th, lanes))
         print(f"  score blocks per SM, {th}x{th} template, {lanes} lane(s), float32 / 1 / 3 "
-              f"passes: " + " / ".join(str(lib.pvot_mega_score_blocks_per_sm(th, th, lanes, p))
-                                       for p in (0, 1, 3)))
+              f"passes: {' / '.join(map(str, blocks))}; parent: "
+              + ("not recorded" if parent is None else "the same" if parent == blocks
+                 else f"DIFFERENT: {parent}"))
     print("  K4/K5 template rows staged at once: "
           + ", ".join(f"{t}x{t}: {lib.pvot_ncc_chunk_rows(t, t)}" for t in (80, 160, 256)))
     # The wrapper's envelope check mirrors the kernel's shared-memory plan.
@@ -1359,15 +1500,98 @@ def main() -> int:
         raise AssertionError("batch 4: a held or tail row is not the look-ahead row")
     batch_ms = time_ms(lambda: track_video_mega(staged[:n_batch], state, config, chunk_size=512,
                                                 batch=4), 2) / n_batch
+    # Its bound a frame: the cadence frames' windows and correlation (one
+    # score launch a batch), the template, and every frame's record, the
+    # look-ahead rows included.
+    cadence = np.zeros((n_full // 4, 10))
+    cadence[:, :4] = bm_out.bbox[3:n_full:4]
+    cadence[:, 9] = bm_out.used_global[3:n_full:4]
+    batch_bound, batch_by = chunk_bound(
+        [(start_box, cadence, len(cadence), frames.shape[1:], (80, 80), config)], n_batch,
+        extra_bytes=40 * (n_batch - len(cadence)))
     print(f"batch mode n=4 on the chunk kernel: {n_batch} frames, {want_launches} K1 launches "
           f"({want_launches / n_batch:.4f} a frame), batch-final frames equal to the plain "
           f"engine, the held frames and the 3-frame tail look-ahead rows; {batch_ms:.5f} ms a "
-          f"frame")
+          f"frame, bound {batch_bound:.6f} ({batch_by})")
+
+    # Phase 22: K1's rung ladder.  Its checks on a 64-frame chunk of the bench
+    # clip; then the ladder timed at every tier over its own clip (the JAX
+    # ladder's, SyntheticSpec(1280, 720, 513, 80x80, seed=1)), global search
+    # off, the counters reset just before and read just after.
+    from pvot_torch.bench import FP32_FLOPS, HBM_BYTES_PER_S
+    from pvot_torch.tools import global_strip_probe as gsp
+    from pvot_torch.tools import mega_breakdown as bd
+
+    ladder_err, ladder_rel, ladder_plain_ms = check_ladder(dev, spec, frames)
+    ladder_clip = bench_clip(num_frames=512)
+    reset_counts()
+    bd.mega_breakdown_chunk.launches = 0
+    ladder_runs = {tier: bd.ladder(tier, 512, dev, clip=ladder_clip) for tier in bd.TIERS}
+    ladder_launches = bd.mega_breakdown_chunk.launches
+    if ladder_launches == 0 or counts()["K1"] == 0:
+        raise AssertionError("the ladder's run launched no rung or no production K1")
+    expect_counts("the ladder's run (its production line)", K1=counts()["K1"])
+    ladder_state = state_at(ladder_clip[0], ladder_clip[1], 0, dev)
+    ladder_start = torch.stack(list(ladder_state.bbox)).tolist()
+    ladder_frames = torch.from_numpy(ladder_clip[1][1:513]).to(dev)
+    ladder_bounds = {}
+    for tier, p in bd.TIERS.items():
+        full_rows = bd.mega_breakdown_chunk("full", ladder_frames, ladder_state, bd.local_config(),
+                                            tier)[0].cpu().numpy()
+        ladder_bounds[tier] = chunk_bound([(ladder_start, full_rows, 512, frames.shape[1:],
+                                            (80, 80), bd.local_config())], 512, p)
+    print(f"ladder on {torch.cuda.get_device_name(0)} ({smi}), 720p/80/r60, chunk 512, "
+          f"{bd.N_CALLS} calls a timing, best of 3; compile seconds by source: " + ", ".join(
+              f"{unit} {sec:.1f}" for unit, sec in _build.build_info["units"].items()))
+    for tier, run in ladder_runs.items():
+        rungs = run["rungs"]
+        print(f"ladder {tier}, us a frame (delta; score + commit kernels' device us): " + ", ".join(
+            f"{r} {rungs[r]['us_per_frame']:.3f} ({run['deltas'][r]:+.3f}; "
+            f"{rungs[r]['score_us_per_frame']:.3f} + {rungs[r]['commit_us_per_frame']:.3f})"
+            for r in bd.RUNGS)
+            + f"; production K1 {run['production']:.3f} (vs full "
+            f"{run['production'] - rungs['full']['us_per_frame']:+.3f}); bound "
+            f"{ladder_bounds[tier][0] * 1e3:.3f} ({ladder_bounds[tier][1]})")
+
+    # Phase 23: the global-strip probes, counters reset just before.
+    gsp.strip_best.launches = gsp.slab_refetch.launches = 0
+    reset_counts()
+    strip_errs = check_strip_probes(dev)
+    strip_launches, refetch_launches = gsp.strip_best.launches, gsp.slab_refetch.launches
+    expect_counts("the strip probes")
+    if strip_launches == 0 or refetch_launches == 0:
+        raise AssertionError("the strip probes launched no strip_best or no slab_refetch")
+    x7, x8 = (torch.from_numpy(gsp.probe_frames(seed)).to(dev) for seed in (7, 8))
+    strip_us, refetch_us = gsp.device_us(gsp.strip_best, x7), gsp.device_us(gsp.slab_refetch, x8)
+    strip_plain_ms = time_ms(lambda: gsp.strip_best_reference(x7), 3)
+    refetch_plain_ms = time_ms(lambda: gsp.slab_refetch_reference(x8), 3)
+    # Bounds of one call on its probe's input: the bytes each strip's box
+    # sums read (55 x 135 u8) and the operations (the convert, 7 + 7
+    # additions an output of the separable sums, a comparison an output) at
+    # the FP32 peak; the slabs the refetch reads (one or two of 64 x 256 u8 a
+    # frame) and an addition a byte.
+    n_strips = sum(len(gsp.strips_of(t)) for t in range(2))
+    in_px = (gsp.DY_MAX + 7) * (gsp.TX + 7)
+    strip_ops = n_strips * (in_px + 7 * gsp.DY_MAX * (gsp.TX + 7) + 8 * gsp.DY_MAX * gsp.TX)
+    strip_t = (strip_ops / FP32_FLOPS, (n_strips * in_px + 2 * 3 * 4) / HBM_BYTES_PER_S)
+    n_slabs = sum(1 + int(f[0, 0] & 1) for f in gsp.probe_frames(8))
+    slab = gsp.SLAB_H * gsp.SLAB_W
+    refetch_t = (n_slabs * slab / FP32_FLOPS, (n_slabs * slab + 2 * 2 * 4) / HBM_BYTES_PER_S)
+    strip_bound, refetch_bound = (max(t) * 1e3 for t in (strip_t, refetch_t))
+    strip_by, refetch_by = ("operations" if t[0] >= t[1] else "bytes" for t in (strip_t, refetch_t))
+    print(f"strip probes: strip_best {strip_us:.3f} us a call (plain {strip_plain_ms:.4f} ms, "
+          f"bound {strip_bound * 1e3:.5f} us, {strip_by}), slab_refetch {refetch_us:.3f} us "
+          f"(plain {refetch_plain_ms:.4f} ms, bound {refetch_bound * 1e3:.5f} us, "
+          f"{refetch_by}); launches {strip_launches} and {refetch_launches}")
 
     def tier_fields(tiers):
         return {f"{p}pass": v for p, v in tiers.items()}
 
-    # Phase 22.
+    def ladder_fields(key):
+        return {tier: {r: run["rungs"][r][key] for r in bd.RUNGS}
+                for tier, run in ladder_runs.items()}
+
+    # Phase 24.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -1398,6 +1622,8 @@ def main() -> int:
             "batch4_launches": want_launches,
             "batch4_frames": n_batch,
             "batch4_ms_per_frame": batch_ms,
+            "batch4_bound_ms_per_frame": batch_bound,
+            "batch4_bound_by": batch_by,
         },
         {
             "name": "mega_track_chunk_multi",
@@ -1502,6 +1728,56 @@ def main() -> int:
                                     main_path_fps=n_main / fast_s)},
             "tiers_unit": "ms per local frame (121x121 region), 720p/80/r60; launches and "
                           "frames/s on track_stream(pallas_fast) over the bench clip",
+        },
+        {
+            "name": "mega_breakdown",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/mega_breakdown.cu",
+            "replaces": "tools/mega_breakdown.py:409",
+            "launches": ladder_launches,
+            "max_abs_err": ladder_err,
+            "checksum_max_rel_err": ladder_rel,
+            "ms": ladder_runs["highest"]["rungs"]["full"]["us_per_frame"] / 1e3,
+            "plain_ms": ladder_plain_ms,
+            "bound_ms": ladder_bounds["highest"][0],
+            "bound_by": ladder_bounds["highest"][1],
+            "library_ms": None,
+            "ms_unit": "per local frame of the full rung (K1), 720p/80/r60, chunk 512, float32",
+            "rungs_us_per_frame": ladder_fields("us_per_frame"),
+            "rungs_score_kernel_us_per_frame": ladder_fields("score_us_per_frame"),
+            "rungs_commit_kernel_us_per_frame": ladder_fields("commit_us_per_frame"),
+            "deltas_us_per_frame": {tier: run["deltas"] for tier, run in ladder_runs.items()},
+            "production_us_per_frame": {tier: run["production"]
+                                        for tier, run in ladder_runs.items()},
+            "tiers_bound_ms": {tier: b[0] for tier, b in ladder_bounds.items()},
+        },
+        {
+            "name": "global_strip_best",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/strip_probe.cu",
+            "replaces": "tools/global_strip_probe.py:227",
+            "launches": strip_launches,
+            "max_abs_err": strip_errs["strip_best"],
+            "ms": strip_us / 1e3,
+            "plain_ms": strip_plain_ms,
+            "bound_ms": strip_bound,
+            "bound_by": strip_by,
+            "library_ms": None,
+            "ms_unit": "per call on the probe's input, 2 frames (7 strips)",
+        },
+        {
+            "name": "slab_refetch",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/strip_probe.cu",
+            "replaces": "tools/global_strip_probe.py:306",
+            "launches": refetch_launches,
+            "max_abs_err": strip_errs["slab_refetch"],
+            "ms": refetch_us / 1e3,
+            "plain_ms": refetch_plain_ms,
+            "bound_ms": refetch_bound,
+            "bound_by": refetch_by,
+            "library_ms": None,
+            "ms_unit": "per call on the probe's input, 2 frames",
         },
     ]}))
     print(smi)

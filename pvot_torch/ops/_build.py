@@ -47,6 +47,11 @@ SIGNATURES = {
         [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
         ctypes.c_int,
     ),
+    # rung, then pvot_mega_track_chunk's arguments
+    "pvot_mega_breakdown_chunk": (
+        [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        ctypes.c_int,
+    ),
     "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
     "pvot_mega_score_blocks_per_sm": ([_I, _I, _I, _I], ctypes.c_int),
     # img, img_u8, img_h, img_w, row_stride, lane_stride, lanes, n_lanes, out_h,
@@ -62,6 +67,10 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "pvot_ncc_chunk_rows": ([_I, _I], ctypes.c_int),
+    # frames, n_frames, part_val, part_yx, out, stream
+    "pvot_strip_best": ([_P, _I, _P, _P, _P, _P], ctypes.c_int),
+    # frames, n_frames, out, stream
+    "pvot_slab_refetch": ([_P, _I, _P, _P], ctypes.c_int),
     "pvot_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -91,10 +100,11 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for their hash exists: one
-    nvcc per source, all at once, then one link."""
+    nvcc per source, all at once, then one link.  `build_info["units"]`
+    holds each source's compile seconds."""
     out = library_path()
     if out.exists():
-        build_info.update(seconds=0.0, path=str(out), log="(cached)")
+        build_info.update(seconds=0.0, path=str(out), log="(cached)", units={})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
@@ -102,17 +112,26 @@ def build() -> Path:
     jobs = []
     for src in (s for s in _sources() if s.suffix == ".cu"):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        text = BUILD_DIR / f"{tag}.{src.stem}.txt"  # a file, so no pipe can fill
         cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
+        with open(text, "w") as sink:
+            proc = subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT)
+        jobs.append((src, cmd, obj, text, proc))
+    units = {}
+    while len(units) < len(jobs):
+        for src, _, _, _, proc in jobs:
+            if src.name not in units and proc.poll() is not None:
+                units[src.name] = time.perf_counter() - t0
+        time.sleep(0.05)
     log = ""
     failed = None
-    for cmd, _, proc in jobs:
-        text = proc.communicate()[0]
-        log += text
+    for src, cmd, _, text, proc in jobs:
+        out_text = text.read_text()
+        text.unlink()
+        log += f"== {src.name}\n{out_text}"  # the compiler's output, source by source
         if proc.returncode != 0 and failed is None:
-            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}"
-    objs = [str(obj) for _, obj, _ in jobs]
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out_text}"
+    objs = [str(obj) for _, _, obj, _, _ in jobs]
     try:
         if failed:
             raise RuntimeError(failed)
@@ -128,7 +147,7 @@ def build() -> Path:
             Path(obj).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     out.with_suffix(".log").write_text(log)
-    build_info.update(seconds=seconds, path=str(out), log=log)
+    build_info.update(seconds=seconds, path=str(out), log=log, units=units)
     return out
 
 

@@ -344,13 +344,15 @@ def _n_valid_columns(values, s: int, dev: torch.device, batch: int = 1) -> torch
 
 def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std,
             lost_count, use_global, n_valid, config: TrackerConfig, n_blocks: int,
-            stream, extents=None, passes: int = 0, batch: int = 1):
+            stream, extents=None, passes: int = 0, batch: int = 1, rung=None):
     """Run one C entry ("one", "multi" or "objects") on S lanes: frames (S, F,
     H, W) u8, each lane's frames contiguous, lanes `frames.stride(0)` apart (0
     for objects); the states stacked on S, all on frames' device.  extents:
     each lane's true (th, tw) in the template buffer (default: all of it);
     objects whose extents differ get them as the kernel's extent table.
     passes: the score tier (0 float32, 1-3 bf16 passes); batch: the cadence.
+    rung ("one" only): a stage of K1's rung ladder
+    (pvot_torch.tools.mega_breakdown) in place of K1's production kernels.
     Returns (CUDA error code, rows (S, F, 10), padded templates (S, th,
     round_up4(tw)))."""
     s, f, h, w = frames.shape
@@ -408,11 +410,11 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
             split_part.data_ptr(), split_count.data_ptr(), *tail,
         )
     else:
-        err = lib.pvot_mega_track_chunk(
-            frames.data_ptr(), f, h, w, th, tw, state_i.data_ptr(), state_f.data_ptr(),
-            tpl_pad.data_ptr(), part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
-            split_part.data_ptr(), split_count.data_ptr(), *tail,
-        )
+        args = (frames.data_ptr(), f, h, w, th, tw, state_i.data_ptr(), state_f.data_ptr(),
+                tpl_pad.data_ptr(), part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
+                split_part.data_ptr(), split_count.data_ptr(), *tail)
+        err = (lib.pvot_mega_track_chunk(*args) if rung is None
+               else lib.pvot_mega_breakdown_chunk(rung, *args))
     return err, rows, tpl_pad
 
 

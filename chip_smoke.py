@@ -128,7 +128,28 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      reset just before: each kernel against its plain version and the numpy
      oracle (value within 1e-5 relative, (y, x) exactly; the refetch sums
      exactly), and their device us a call;
- 24. print the kernels' JSON line (each kernel's time beside its plain
+ 24. the fused-argmax probe catalogue T4 (pvot_torch.tools.fused_argmax_probe,
+     csrc/argmax_probe.cu), counters reset just before and read just after:
+     each of its 23 probes on its own inputs against the JAX probe's own
+     assertion (restated against float64 products) and against its plain
+     version (integers, copies, rolls and reductions exactly; float32
+     products within 1e-6 and bf16 products within 1e-5 of the plain
+     version's largest value; K5 (x, y) exactly, its value within 1e-5), one
+     launch of its kernel a probe and 7 of K5 for fused_region,
+     fused_multitile and vmap_fused; then each probe's device us a call (200
+     calls between CUDA events), its plain version's ms, its bound and the
+     library call's ms (torch.max / argmax, the torch expression, matmul with
+     TF32 off or on bf16 operands, a slice's clone or sum, torch.roll,
+     F.conv2d; none for the step-carry probes);
+ 25. the same for the Pallas NCC probe ladder T5 (pvot_torch.tools
+     .pallas_probe, csrc/pallas_probe.cu and the T4 kernels it shares): 17
+     probes, K4 twice (small_ncc, headline_ncc; maps within 1e-4 of the
+     plain version);
+ 26. ROADMAP C open check 1: the `xla` engine's full map of the first global
+     frame of phase 3's re-acquisition clip on the card (full_f32) against
+     the CPU: the same argmax, the peak within 1e-5, the whole map within
+     2e-3, the worst point printed;
+ 27. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
      FP32 peak, or at the bf16 tensor-core peak times passes for a tier, and
      its bytes at the memory rate, counted from this run's records; for the
@@ -138,7 +159,9 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      tracking, a masked NCC argmax, a strip search or a conditional slab
      sum, and `conv2d_corr_ms` times F.conv2d on the correlation term alone
      as a yardstick, in bf16 for the tiers; each kernel's `tiers` holds the
-     same fields per tier), the card's line, and last the result line.
+     same fields per tier; for the probe catalogues the sums over their
+     probes, and each probe's fields in `probes`), the card's line, and last
+     the result line.
 
 TF32 is off from phase 3 on, except in phase 15.
 """
@@ -458,6 +481,94 @@ def check_strip_probes(dev) -> dict:
     return errs
 
 
+def run_probe_catalogue(dev, tool, k45_probes, k_launches: dict, counts, reset_counts) -> dict:
+    """Phases 24-25: every probe of a catalogue (pvot_torch.tools
+    .fused_argmax_probe or .pallas_probe) on the card, the launch counters
+    reset just before and read just after: each probe's kernel against the
+    JAX probe's own assertion and its plain version (fap.run_case), every
+    probe kernel launched once a probe that uses it, and K4/K5 (`k45_probes`)
+    exactly `k_launches` times.  Then each probe timed: its us a call over
+    200 calls (CUDA events around the wrapper's calls: the host's time shows
+    where it exceeds the kernel's), its kernels' device us a call
+    (torch.profiler),
+    its plain version's ms, its bound and the library call's ms
+    (fap.time_case).  Returns the kernels' line entry's fields."""
+    from pvot_torch.tools import fused_argmax_probe as fap
+
+    wrappers = tuple(dict.fromkeys(fap.WRAPPERS + tool.WRAPPERS))
+    cases = [(name, make()) for name, make in tool.PROBES]
+    fap.reset_launches(*wrappers)
+    reset_counts()
+    results = {name: fap.run_case(name, case, dev) for name, case in cases}
+    got = {w.__name__: w.launches for w in wrappers}
+    want = {w.__name__: sum(c.kernel is w for n, c in cases if n not in k45_probes)
+            for w in wrappers}
+    if got != want or counts() != {**{n: 0 for n in counts()}, **k_launches}:
+        raise AssertionError(f"{tool.__name__}: launches {got} and {counts()}, expected {want} "
+                             f"and {k_launches}")
+    launches = sum(got.values()) + sum(counts().values())
+    probes = {}
+    for name, case in cases:
+        t = fap.time_case(case, dev)
+        probes[name] = {"kernel": case.kernel.__name__, "ms": t["us"] / 1e3,
+                        "device_ms": None if t["device_us"] is None else t["device_us"] / 1e3,
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "max_abs_err": results[name]["max_abs_err"],
+                        "probe_err": results[name]["err"]}
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.3f} us"
+        dev_us = "not measured" if t["device_us"] is None else f"{t['device_us']:.3f} us"
+        print(f"{tool.__name__.rsplit('.', 1)[1]} {name} ({case.kernel.__name__}): probe error "
+              f"{results[name]['err']:.3g}, max |kernel - plain| "
+              f"{results[name]['max_abs_err']:.3g}; {t['us']:.3f} us a call (its kernels "
+              f"on the device {dev_us}), plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.5f} us ({t['bound_by']}), "
+              f"library {lib}")
+    by_ops = sum(p["bound_ms"] for p in probes.values() if p["bound_by"] == "operations")
+    bound = sum(p["bound_ms"] for p in probes.values())
+    return {"launches": launches, "kernel_launches": got, "k45_launches": k_launches,
+            "max_abs_err": max(p["max_abs_err"] for p in probes.values()),
+            "ms": sum(p["ms"] for p in probes.values()),
+            "plain_ms": sum(p["plain_ms"] for p in probes.values()), "bound_ms": bound,
+            "bound_by": "operations" if by_ops >= bound - by_ops else "bytes",
+            "library_ms": None, "probes": probes}
+
+
+def check_full_map_on_card(dev, frames_u8, rows, state) -> None:
+    """Phase 26 (ROADMAP C, open check 1): the `xla` engine's full map
+    (ops/ncc_matmul.py make_full_fn, its products under full_f32 on the
+    card) of a global frame on the card and on the CPU, under the tracker's
+    contract: the same argmax, the peak within 1e-5, the whole map within
+    2e-3.  frames_u8 (F, H, W) numpy, rows the chunk's records (the first
+    global frame is checked), state the chunk's start state."""
+    from pvot_torch.ops.ncc_matmul import make_full_fn
+    from pvot_torch.ops.search import best_rows
+
+    t = int(np.nonzero(rows[:, 9] != 0)[0][0])
+    full_fn = make_full_fn()
+    maps = {}
+    for where in (dev, torch.device("cpu")):
+        maps[where.type] = full_fn(torch.from_numpy(frames_u8[t]).to(where),
+                                   state.template.to(where), state.t_mean.to(where),
+                                   state.t_std.to(where)).cpu()
+    card, host = maps["cuda"], maps["cpu"]
+    b_card, b_host = best_rows(card).numpy(), best_rows(host).numpy()
+    diff = (card - host).abs()
+    worst = int(torch.argmax(diff))
+    wy, wx = divmod(worst, card.shape[1])
+    out = {"frame": t, "peak_diff": float(abs(b_card[0] - b_host[0])),
+           "max_abs_diff": float(diff.max()), "worst_card": float(card[wy, wx]),
+           "worst_cpu": float(host[wy, wx])}
+    print(f"open check 1: xla full map of global frame {t} ({tuple(card.shape)}), card against "
+          f"CPU: argmax (x, y) {b_card[1:].tolist()} vs {b_host[1:].tolist()}, peak "
+          f"{b_card[0]:.8f} vs {b_host[0]:.8f} (diff {out['peak_diff']:.3g} <= 1e-5), whole map "
+          f"max diff {out['max_abs_diff']:.3g} (<= 2e-3) at (y, x) ({wy}, {wx}): "
+          f"{out['worst_card']:.8f} vs {out['worst_cpu']:.8f}")
+    if not (np.array_equal(b_card[1:], b_host[1:]) and out["peak_diff"] <= 1e-5
+            and out["max_abs_diff"] <= 2e-3):
+        raise AssertionError(f"open check 1: the card's xla full map differs from the CPU's: {out}")
+
+
 def profiled(fn, kernel: str):
     """fn() under torch.profiler: (device ms per launch of the CUDA kernels
     whose name holds `kernel`, or 0.0 if the profiler saw none; {kernel name:
@@ -606,7 +717,7 @@ def main() -> int:
                        "the same" if parent == figures else f"DIFFERENT: {parent}")
             print(f"  ptxas {unit} {label}: {figures[0]} registers, spill stores/loads "
                   f"{figures[1]}/{figures[2]} bytes; parent: {verdict}")
-    for unit in ("mega_breakdown.cu", "strip_probe.cu"):
+    for unit in ("mega_breakdown.cu", "strip_probe.cu", "argmax_probe.cu", "pallas_probe.cu"):
         print(f"  ptxas {unit} (registers, spill stores/loads): " + "; ".join(
             f"{label} {r} {st}/{ld}" for label, (r, st, ld) in entries.get(unit, {}).items()))
     for th, lanes in ((80, 1), (80, 8), (160, 1), (256, 1)):
@@ -1584,6 +1695,22 @@ def main() -> int:
           f"(plain {refetch_plain_ms:.4f} ms, bound {refetch_bound * 1e3:.5f} us, "
           f"{refetch_by}); launches {strip_launches} and {refetch_launches}")
 
+    # Phases 24-25: the probe catalogues T4 and T5, the counters reset just
+    # before each and read just after: T4's K5 probes launch K5 7 times
+    # (3 + 3 windows and one 4-lane call), T5's K4 probes K4 twice.
+    from pvot_torch.tools import fused_argmax_probe as fap
+    from pvot_torch.tools import pallas_probe as pp
+
+    t4 = run_probe_catalogue(dev, fap, fap.K5_PROBES, {"K5": 7}, counts, reset_counts)
+    t5 = run_probe_catalogue(dev, pp, pp.K4_PROBES, {"K4": 2}, counts, reset_counts)
+    print(f"probe catalogues on {torch.cuda.get_device_name(0)} ({smi}): T4 {t4['launches']} "
+          f"launches, T5 {t5['launches']}; every probe held to its JAX bound and its plain "
+          f"version (largest |kernel - plain| {t4['max_abs_err']:.3g}, {t5['max_abs_err']:.3g})")
+
+    # Phase 26: ROADMAP C open check 1, the xla full map of a global frame of
+    # phase 3's re-acquisition clip on the card against the CPU.
+    check_full_map_on_card(dev, gframes[1:], mega_track_chunk(*gargs)[0].cpu().numpy(), gstate)
+
     def tier_fields(tiers):
         return {f"{p}pass": v for p, v in tiers.items()}
 
@@ -1591,7 +1718,7 @@ def main() -> int:
         return {tier: {r: run["rungs"][r][key] for r in bd.RUNGS}
                 for tier, run in ladder_runs.items()}
 
-    # Phase 24.
+    # Phase 27.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -1778,6 +1905,22 @@ def main() -> int:
             "bound_by": refetch_by,
             "library_ms": None,
             "ms_unit": "per call on the probe's input, 2 frames",
+        },
+        {
+            "name": "fused_argmax_probe",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/argmax_probe.cu",
+            "replaces": "tools/fused_argmax_probe.py",
+            **t4,
+            "ms_unit": "one call of every probe, summed (each probe's in `probes`)",
+        },
+        {
+            "name": "pallas_probe",
+            "route": "cuda",
+            "source": "pvot_torch/csrc/pallas_probe.cu, pvot_torch/csrc/argmax_probe.cu",
+            "replaces": "tools/pallas_probe.py",
+            **t5,
+            "ms_unit": "one call of every probe, summed (each probe's in `probes`)",
         },
     ]}))
     print(smi)

@@ -71,6 +71,32 @@ SIGNATURES = {
     "pvot_strip_best": ([_P, _I, _P, _P, _P, _P], ctypes.c_int),
     # frames, n_frames, out, stream
     "pvot_slab_refetch": ([_P, _I, _P, _P], ctypes.c_int),
+    # The probe catalogues' kernels (csrc/argmax_probe.cu, csrc/pallas_probe.cu).
+    # x, n, mode, val, idx, fill, out_n, stream
+    "pvot_probe_tile_reduce": ([_P, _I, _I, _P, _P, _I, _I, _P], ctypes.c_int),
+    # op, x, scal, si, out, n, w, stream
+    "pvot_probe_ew": ([_I, _P, _P, _I, _P, _I, _I, _P], ctypes.c_int),
+    # a, lda, b, b_lo, b_kind, ldb, c, m, n, k, passes, stream
+    "pvot_probe_gemm": ([_P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+    # x, x_u8, fs, ld, src_h, src_w, off, ru, cu, nb, bstep, nk, kstep, rows, cols, band,
+    # out, stream
+    "pvot_probe_window": ([_P, _I, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P], ctypes.c_int),
+    # x, steps, tile, inc, out, stream
+    "pvot_probe_carry_sum": ([_P, _I, _I, _I, _P, _P], ctypes.c_int),
+    # x, h, w, steps, rows, unit, out, stream
+    "pvot_probe_offset_chain": ([_P, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int),
+    # a, b, n, steps, out, stream
+    "pvot_probe_gated_gemm": ([_P, _P, _I, _I, _P, _P], ctypes.c_int),
+    # x, h, w, y0, x0, rows, cols, steps, out, stream
+    "pvot_probe_gated_copy": ([_P, _I, _I, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int),
+    # x, h, w, shifts, stride, out_h, bcast, out, stream
+    "pvot_probe_roll": ([_P, _I, _I, _P, _I, _I, _I, _P, _P], ctypes.c_int),
+    # w, w_rows, L, t, M, P, ty, tx, out, stream
+    "pvot_probe_shear": ([_P, _I, _I, _P, _I, _I, _I, _I, _P, _P], ctypes.c_int),
+    # img, img_rows, img_w, toep, n_k, L, tx, box, scal, out, gh, gw, stream
+    "pvot_probe_toeplitz_ncc": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P],
+                                ctypes.c_int),
     "pvot_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

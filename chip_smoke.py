@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch/CUDA port (pvot_torch) on one NVIDIA GPU.
 
-Run from the root of the repository: `python3 chip_smoke.py`.  It needs one
-CUDA device and nvcc, imports nothing of JAX or the `pvot` package, and
-exits nonzero on any failure.  Phases, in order, none of them caught:
+Run from the root of the repository: `python3 chip_smoke.py [--parent DIR]`.
+It needs one CUDA device and nvcc, imports nothing of JAX or the `pvot`
+package, and exits nonzero on any failure.  The chunk kernels K1-K3 make one
+persistent launch a chunk.  Phases, in order, none of them caught:
 
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA sources (pvot_torch/csrc, one nvcc per source, at once)
@@ -27,7 +28,7 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      and local frames at 1080p/160/r160;
   4. hold the multi-stream kernel K2 against its plain version: S = 4 at
      720p / 80x80 / r=60, one stream local, one re-acquiring, one ended
-     (n_valid 0), one partial; 2F launches per chunk; each stream's records
+     (n_valid 0), one partial; one launch for the chunk; each stream's records
      bit-equal to K1's on that stream; time kernel and plain version over the
      same 48 steps; time S = 8 with one stream held in global search; and
      hold 200 streams of a 176x256 template (staged in quarters: their lane
@@ -40,7 +41,7 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      roles with templates of 80x80, 64x48, 48x64 and 32x32 in a shared
      bucket; each held against its plain version under the contract, each
      object's records and template bit-equal to K1 on that object alone at
-     its true extent, and 2F launches; (a) and (b) timed, kernel and plain,
+     its true extent, and one launch; (a) and (b) timed, kernel and plain,
      over the same 48 steps beside their bounds; (c) at 1080p a 176x176
      bucket (176x176, 64x48 and 32x32 from outside the frame), which stages
      in row chunks, each object bit-equal to K1 alone, timed; (d) K = 8 all
@@ -48,18 +49,18 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      search, over the same 48 steps; (e) serve_objects with 8 objects over
      1024 frames of the bench clip, all from the ground-truth box, with the
      launch counters reset just before: 0 px off the ground truth, equal to
-     track_objects_mega, only K3 launched and twice per frame; frames/s
+     track_objects_mega, only K3 launched, once a chunk; frames/s
      beside the device path's;
   6. drive the main path, pvot_torch.track_video_mega, over the bench clip
      (2048 frames, chunk 512), with the launch counters reset just before:
      the trajectory must be 0 px off the ground truth, K1 must have launched
-     twice per frame, and K2 and K3 not at all;
+     once a chunk (4 times), and K2 and K3 not at all;
   7. drive serving, pvot_torch.serve_streams, over 8 streams cut at spread
      offsets from the bench clip with unequal lengths, each from its
      ground-truth box, with the launch counters reset just before: every
      stream 0 px off the ground truth and equal, under the contract, to
-     track_video_mega on that stream alone; K2 must have launched twice per
-     frame step, K1 and K3 not at all; print aggregate and per-stream
+     track_video_mega on that stream alone; K2 must have launched once a
+     chunk step, K1 and K3 not at all; print aggregate and per-stream
      frames/s;
   8. hold the per-frame engines' kernels against their plain versions: K4
      (dense maps) at 720p/80, 1080p/160, odd shapes, u8 and f32, within 1e-4,
@@ -100,7 +101,7 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      local, timed per tier;
  18. the JAX package's headline configuration, track_video_mega at 1 pass
      over the bench clip (run_bench, counters zeroed just before its checked
-     run): 0 px, only the 1-pass K1, twice a frame; then 3 and 2 passes, 0 px
+     run): 0 px, only the 1-pass K1, once a chunk; then 3 and 2 passes, 0 px
      each; frames/s of every tier;
  19. serve_streams at 1 pass over phase 7's 8 streams: 0 px, each equal to
      track_video_mega at 1 pass alone, only the 1-pass K2 launched;
@@ -111,7 +112,7 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      K5 and the K4 region (321x321, 1080p/160) timed at 3 passes;
  21. the batch cadence: track_video_mega(batch=4) over 2047 frames of the
      bench clip (a 3-frame tail), equal to track_video_batched on the plain
-     engine, launches 2 per batch plus 1 for the tail; its bound per frame
+     engine, one launch a chunk; its bound per frame
      from the cadence frames' windows and every frame's record;
  22. K1's rung ladder (pvot_torch.tools.mega_breakdown, csrc/mega_breakdown.cu):
      on a 64-frame chunk of the bench clip at every tier, the `full` rung's
@@ -121,7 +122,7 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      float rungs within 1e-4 relative); then the ladder timed at every tier
      (720p/80/r60, chunk 512, global search off as in the JAX ladder), the
      counters reset just before: per-rung us a frame (CUDA events) with the
-     score and commit kernels' device us (torch.profiler), the deltas, the
+     chunk kernel's device us (torch.profiler), the deltas, the
      production K1 beside the `full` rung, and K1's bound at each tier;
  23. the global-strip probes (pvot_torch.tools.global_strip_probe,
      csrc/strip_probe.cu) on their own inputs and the border clip, counters
@@ -149,7 +150,18 @@ exits nonzero on any failure.  Phases, in order, none of them caught:
      frame of phase 3's re-acquisition clip on the card (full_f32) against
      the CPU: the same argmax, the peak within 1e-5, the whole map within
      2e-3, the worst point printed;
- 27. print the kernels' JSON line (each kernel's time beside its plain
+ 27. K1's records, final state and final template at every tier (float32,
+     1, 2, 3 passes) on phase 3's chunk, its re-acquisition clip, the main
+     path and the batch-4 clip, as sha256 digests, equal to the parent
+     tree's (PARENT_DIGESTS: the parent's K1, two launches a frame);
+ 28. the main path under torch.profiler: one kernel of the port (the
+     persistent chunk kernel), launched once a chunk, and no commit kernel;
+ 29. with --parent DIR only: the parent tree at DIR and this one timed in
+     turns (parent, change, change, parent), each in its own process on the
+     card (`time_tree`: the main path's frames/s at every tier, K2 at S = 8,
+     K3 at K = 8 and a global frame), with the verdicts (float32 faster in
+     both pairs, the rest within 3 %), printed, not checked;
+ 30. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
      FP32 peak, or at the bf16 tensor-core peak times passes for a tier, and
      its bytes at the memory rate, counted from this run's records; for the
@@ -168,6 +180,7 @@ TF32 is off from phase 3 on, except in phase 15.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import sys
@@ -246,8 +259,9 @@ def stacked_args(states):
 
 def kernel_label(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name, e.g.
-    score_kernel<1,1,0,6> (kWhole, kOne, kExt, kStage) or ncc_kernel<h,1,0>."""
-    m = re.search(r"\d([a-z][a-z_]*?_kernel(?:_tier)?)(?:I((?:L[bi]\d+E|[a-z])+)E)?E", mangled)
+    chunk_kernel<1,0,6> (kOne, kExt, kStage) or ncc_kernel<h,1,0>."""
+    m = re.search(r"\d([a-z][a-z_]*?_kernel(?:_tier|_rows)?)(?:I((?:L[bi]\d+E|[a-z])+)E)?E",
+                  mangled)
     if not m:
         return mangled
     args = [a or b for a, b in re.findall(r"L[bi](\d+)E|([a-z])", m.group(2) or "")]
@@ -298,9 +312,178 @@ PARENT_PTXAS = {
     "ncc_kernel<f,0,0>": (44, 0, 0), "ncc_kernel<h,0,3>": (57, 0, 0),
     "ncc_kernel<h,0,0>": (44, 0, 0),
 }
+
+
+def parent_label(label: str) -> str:
+    """The parent tree's kernel for a production kernel of this one: the
+    persistent chunk kernel chunk_kernel<kOne,kExt,6> (float32, whole
+    template), chunk_kernel_rows<kOne,kExt> (float32, in row chunks) and
+    chunk_kernel_tier<kWhole,kOne,kExt,kPasses,6> replace the score kernels
+    of the same case (the commit kernel is gone); other labels unchanged."""
+    label = re.sub(r"^chunk_kernel<(\d),(\d),6>$", r"score_kernel<1,\1,\2>", label)
+    label = re.sub(r"^chunk_kernel_rows<(\d),(\d)>$", r"score_kernel<0,\1,\2>", label)
+    return re.sub(r"^chunk_kernel_tier<(.*),6>$", r"score_kernel_tier<\1>", label)
+
+
 PARENT_BLOCKS_PER_SM = {(80, 1): (2, 2, 2), (80, 8): (2, 2, 2), (160, 1): (1, 1, 1),
                         (256, 1): (1, 1, 1)}
 
+
+# K1's outputs on the parent tree (two launches a frame), as
+# `k1_digests` prints them: sha256 of the records, the final state and the
+# final template at every tier, on an NVIDIA H100 80GB HBM3 at 700 W with
+# CUDA 12.8 (the parent tree's K1 run through the same function).  The
+# persistent K1 must give these bits.
+PARENT_DIGESTS = {
+    "chunk64": {
+        "f32": "5a0d89fae0a53ff4",
+        "1pass": "88b2ab4267b322d7",
+        "2pass": "fced4feae490b4b8",
+        "3pass": "a432dfcfbb6b2419",
+    },
+    "reacquire48": {
+        "f32": "415cb5f05156d50a",
+        "1pass": "94fb43282be5c4fb",
+        "2pass": "7e64ba644e3d71ed",
+        "3pass": "8451e64cc41e7877",
+    },
+    "main2048": {
+        "f32": "5a9ee23f9aa67c91",
+        "1pass": "3783511bc1175a3f",
+        "2pass": "9232438d40890a22",
+        "3pass": "9b1396ecb0686b07",
+    },
+    "batch4_2047": {
+        "f32": "11e72ba7b7d96e54",
+        "1pass": "0731f426a26e586c",
+        "2pass": "27483ddae84b655e",
+        "3pass": "3a399573b6efa272",
+    },
+}
+
+
+def k1_digests(dev, clip, gclip, gconfig, launch_one) -> dict:
+    """sha256 digests (first 16 hex digits) of K1's outputs at every tier,
+    {case: {tier: digest}}: phase 3's chunk (64 frames of the bench clip)
+    and its re-acquisition clip (48 frames, global frames included) through
+    K1's C entry, the records, final state_i, state_f and padded template
+    (`launch_one` runs it); the main path (track_video_mega over the bench
+    clip's 2048 frames, chunk 512) and the batch-4 clip (its first 2047
+    frames at batch 4: a 3-frame tail), the records and every field of the
+    final TrackerState."""
+    from pvot_torch.bench import state_at
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.tracker.mega import track_video_mega
+
+    def digest(*values) -> str:
+        h = hashlib.sha256()
+        for v in values:
+            v = v.detach().cpu().contiguous().numpy() if torch.is_tensor(v) else np.asarray(v)
+            h.update(np.ascontiguousarray(v).tobytes())
+        return h.hexdigest()[:16]
+
+    config = TrackerConfig()
+    spec, frames = clip
+    gspec, gframes = gclip
+    state, gstate = state_at(spec, frames, 0, dev), state_at(gspec, gframes, 0, dev)
+    staged = torch.from_numpy(frames[1:2049]).to(dev)
+    chunks = {"chunk64": (staged[:64], state, config),
+              "reacquire48": (torch.from_numpy(gframes[1:]).to(dev), gstate, gconfig)}
+    tracks = {"main2048": dict(frames=staged, batch=1),
+              "batch4_2047": dict(frames=staged[:2047], batch=4)}
+    out = {}
+    for tier, kw in (("f32", dict(highest=True)), ("1pass", dict(highest=False, score_passes=1)),
+                     ("2pass", dict(highest=False, score_passes=2)),
+                     ("3pass", dict(highest=False, score_passes=3))):
+        for name, (fr, st, cfg) in chunks.items():
+            out.setdefault(name, {})[tier] = digest(*launch_one(fr, st, cfg, kw))
+        for name, t in tracks.items():
+            final, rec = track_video_mega(t["frames"], state, config, chunk_size=512,
+                                          batch=t["batch"], **kw)
+            out.setdefault(name, {})[tier] = digest(*rec, *final)
+    return out
+
+
+def time_tree(clip_path: str) -> dict:
+    """The timings that phase 29 takes of one tree, in a process whose
+    `pvot_torch` is that tree's (parent or change; only entry points both
+    have): frames/s of the main path (`run_bench` over the bench clip, saved
+    at `clip_path`) at float32 and 1, 2 and 3 passes, each 0 px; ms a step of
+    K2 at S = 8 and K3 at K = 8, all local, and of K1 on a global frame."""
+    from pvot_torch.bench import run_bench, state_at
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.io.synthetic import SyntheticSpec
+    from pvot_torch.ops.ncc_mega import (
+        mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects,
+    )
+    from pvot_torch.parallel.multi import stack_states
+    from pvot_torch.tracker.state import init_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    frames = np.load(clip_path)
+    spec = SyntheticSpec(width=1280, height=720, num_frames=frames.shape[0], target_w=80,
+                         target_h=80, seed=1)
+    config = TrackerConfig()
+    out = {"pvot_torch": __import__("pvot_torch").__file__}
+    for name, kw in (("f32", {}), ("1pass", dict(highest=False, score_passes=1)),
+                     ("2pass", dict(highest=False, score_passes=2)),
+                     ("3pass", dict(highest=False, score_passes=3))):
+        r = run_bench(clip=(spec, frames), **kw)
+        if r["max_l1_err_px"] != 0:
+            raise AssertionError(f"{name}: main path {r['max_l1_err_px']} px off")
+        out[f"main_{name}_fps"] = r["value"]
+    states = [state_at(spec, frames, 64 * i, dev) for i in range(8)]
+    f8 = torch.stack([torch.from_numpy(frames[64 * i + 1 : 64 * i + 33])
+                      for i in range(8)]).to(dev)
+    s8 = stacked_args(states)
+    nv8 = torch.full((8,), 32, dtype=torch.int32, device=dev)
+    out["k2_s8_ms_per_step"] = time_ms(lambda: mega_track_chunk_multi(f8, *s8, nv8, config),
+                                       20) / 32
+    k8 = stack_states([states[0]] * 8)
+    lchunk = torch.from_numpy(frames[1:49]).to(dev)
+    k8args = (lchunk, torch.stack(list(k8.bbox), dim=-1), k8.template, k8.t_mean, k8.t_std,
+              k8.lost_count, k8.use_global, 48, config)
+    out["k3_k8_ms_per_step"] = time_ms(lambda: mega_track_chunk_objects(*k8args), 20) / 48
+    noise = np.random.default_rng(8).random((80, 80), dtype=np.float32)
+    held = init_state(noise, (600, 300, 80, 80), device=dev)._replace(
+        use_global=torch.tensor(True, device=dev))
+    hargs = chunk_args(lchunk[:16], held, config)
+    out["k1_global_ms_per_frame"] = time_ms(lambda: mega_track_chunk(*hargs), 5) / 16
+    return out
+
+
+def in_turns(parent_root: str, frames: np.ndarray) -> dict:
+    """Phase 29: `time_tree` of the parent tree at `parent_root` and of this
+    one in turns (parent, change, change, parent), each in its own process
+    on this card.  Returns {"runs": [(tree, timings)], "verdicts"}: the
+    float32 main path faster than the parent in both pairs, and each other
+    timing at most 3 % slower than the parent in both pairs."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    clip_path = os.path.join(here, "build", "in_turns_clip.npy")
+    os.makedirs(os.path.dirname(clip_path), exist_ok=True)
+    np.save(clip_path, frames)
+    runs = []
+    for tree, root in (("parent", parent_root), ("change", here), ("change", here),
+                       ("parent", parent_root)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree",
+                               os.path.abspath(root), clip_path], cwd=root, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"timing the {tree} tree failed:\n{proc.stderr[-3000:]}")
+        runs.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
+        print(f"in turns, {tree}: {json.dumps(runs[-1][1])}", flush=True)
+    pairs = ((runs[0][1], runs[1][1]), (runs[3][1], runs[2][1]))  # (parent, change)
+    verdicts = {"main_f32_faster": all(c["main_f32_fps"] > p_["main_f32_fps"] for p_, c in pairs)}
+    for key in ("main_1pass_fps", "main_2pass_fps", "main_3pass_fps"):
+        verdicts[f"{key}_within_3pct"] = all(c[key] >= 0.97 * p_[key] for p_, c in pairs)
+    for key in ("k2_s8_ms_per_step", "k3_k8_ms_per_step", "k1_global_ms_per_frame"):
+        verdicts[f"{key}_within_3pct"] = all(c[key] <= 1.03 * p_[key] for p_, c in pairs)
+    return {"runs": runs, "verdicts": verdicts}
 
 def time_ms(fn, repeats: int) -> float:
     """Milliseconds per call between CUDA events, after one warm-up call."""
@@ -593,7 +776,14 @@ def profiled(fn, kernel: str):
     return (sum(ms for _, ms in hits) / n if n else 0.0), by_kernel, wall
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of pvot_torch on one NVIDIA GPU.")
+    ap.add_argument("--parent", default=None,
+                    help="root of a checkout of the parent tree: phase 29 times it against "
+                         "this one in turns")
+    opts = ap.parse_args(argv)
     # Phase 1.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -711,8 +901,7 @@ def main() -> int:
     entries = ptxas_entries(_build.build_info["log"])
     for unit in ("ncc_mega.cu", "ncc_pallas.cu"):  # the production kernels, beside PR 5's
         for label, figures in entries.get(unit, {}).items():
-            parent = PARENT_PTXAS.get(re.sub(r"^((?:score|commit)_kernel\w*<.*),6>$", r"\1>",
-                                             label))
+            parent = PARENT_PTXAS.get(parent_label(label))
             verdict = ("not recorded" if parent is None else
                        "the same" if parent == figures else f"DIFFERENT: {parent}")
             print(f"  ptxas {unit} {label}: {figures[0]} registers, spill stores/loads "
@@ -721,7 +910,7 @@ def main() -> int:
         print(f"  ptxas {unit} (registers, spill stores/loads): " + "; ".join(
             f"{label} {r} {st}/{ld}" for label, (r, st, ld) in entries.get(unit, {}).items()))
     for th, lanes in ((80, 1), (80, 8), (160, 1), (256, 1)):
-        blocks = tuple(lib.pvot_mega_score_blocks_per_sm(th, th, lanes, p) for p in (0, 1, 3))
+        blocks = tuple(lib.pvot_mega_score_blocks_per_sm(th, th, lanes, 0, p) for p in (0, 1, 3))
         parent = PARENT_BLOCKS_PER_SM.get((th, lanes))
         print(f"  score blocks per SM, {th}x{th} template, {lanes} lane(s), float32 / 1 / 3 "
               f"passes: {' / '.join(map(str, blocks))}; parent: "
@@ -845,8 +1034,8 @@ def main() -> int:
     nv4 = torch.tensor([f4, f4, 0, 20], dtype=torch.int32, device=dev)
     before = mega_track_chunk_multi.launches
     got = mega_track_chunk_multi(fr4, *st4, nv4, gconfig)
-    if mega_track_chunk_multi.launches - before != 2 * f4:
-        raise AssertionError("K2 did not launch twice per frame step")
+    if mega_track_chunk_multi.launches - before != chunk_launches(f4):
+        raise AssertionError("K2 did not launch once for the chunk")
     if not bool((got[0][1, :, 9] != 0).any()):
         raise AssertionError("K2's re-acquiring stream ran no global frame")
     k2_err = compare("K2 parity S=4 (local, re-acquiring, ended, partial)", got,
@@ -925,8 +1114,8 @@ def main() -> int:
                  ost.lost_count, ost.use_global, of, config)
         before = mega_track_chunk_objects.launches
         got = mega_track_chunk_objects(*oargs, bucket_extents=bucket)
-        if mega_track_chunk_objects.launches - before != 2 * of:
-            raise AssertionError(f"K3 {label} did not launch twice per frame step")
+        if mega_track_chunk_objects.launches - before != chunk_launches(of):
+            raise AssertionError(f"K3 {label} did not launch once for the chunk")
         if not bool((got[0][3, :, 9] != 0).any()):
             raise AssertionError(f"K3 {label}: the object started outside ran no global frame")
         k3_err = max(k3_err, compare(
@@ -940,7 +1129,7 @@ def main() -> int:
                     and not got[1][i, eh:].any() and not got[1][i, :, ew:].any()):
                 raise AssertionError(f"K3 {label} object {i} differs from K1 on it alone")
         print(f"K3 {label} ({extents}): each object's records and template bit-equal to K1 on "
-              f"that object alone at its true extent; 2F launches")
+              f"that object alone at its true extent; one launch")
         # Both K = 4 sets timed over the same 48 steps, kernel and plain,
         # beside their bounds (each object's FMA at its own extent).
         rows4 = got[0].cpu().numpy()
@@ -1035,7 +1224,8 @@ def main() -> int:
                                 chunk_size=64)
     serve_o_s = time.perf_counter() - t0
     k3_launches = mega_track_chunk_objects.launches
-    if mega_track_chunk.launches or mega_track_chunk_multi.launches or k3_launches != 2 * n_serve:
+    if (mega_track_chunk.launches or mega_track_chunk_multi.launches
+            or k3_launches != -(-n_serve // 64) * chunk_launches(64)):
         raise AssertionError(f"serve_objects launched K3 {k3_launches} times, K1 "
                              f"{mega_track_chunk.launches}, K2 {mega_track_chunk_multi.launches}")
     o_err = max(max_l1_err_px(spec, served_o.bbox[:, k]) for k in range(8))
@@ -1057,8 +1247,8 @@ def main() -> int:
     print("main path:", json.dumps(result))
     if result["max_l1_err_px"] != 0:
         raise AssertionError(f"main path max_l1_err_px {result['max_l1_err_px']} != 0")
-    if result["kernel_launches"] != 2 * 2048:
-        raise AssertionError(f"kernel launches {result['kernel_launches']} != {2 * 2048}")
+    if result["kernel_launches"] != 2048 // 512 * chunk_launches(512):
+        raise AssertionError(f"kernel launches {result['kernel_launches']} != 4, one a chunk")
     print(f"main path: {result['value']:.1f} frames/s, {result['ms_per_frame']:.5f} ms/frame "
           f"on {smi}")
 
@@ -1076,7 +1266,7 @@ def main() -> int:
     serve_s = time.perf_counter() - t0
     serve_launches = mega_track_chunk_multi.launches
     if (mega_track_chunk.launches or mega_track_chunk_objects.launches
-            or serve_launches != 2 * len(timings) * chunk_size):
+            or serve_launches != len(timings) * chunk_launches(chunk_size)):
         raise AssertionError(f"serving launched K2 {serve_launches} times, K1 "
                              f"{mega_track_chunk.launches}, K3 "
                              f"{mega_track_chunk_objects.launches}")
@@ -1365,7 +1555,7 @@ def main() -> int:
         reset_counts()
         err = compare(f"K1 {p}-pass 720p tracked chunk", mega_track_chunk(*args, **kw),
                       mega_track_chunk_reference(*args, **kw))
-        if mega_track_chunk.launches_by_tier != {0: 0, 1: 0, 2: 0, 3: 0, p: 2 * n_k1}:
+        if mega_track_chunk.launches_by_tier != {0: 0, 1: 0, 2: 0, 3: 0, p: chunk_launches(n_k1)}:
             raise AssertionError(f"K1 {p}-pass launched {mega_track_chunk.launches_by_tier}")
         got = mega_track_chunk(*gargs, **kw)
         if not bool((got[0][:, 9] != 0).any()):
@@ -1481,7 +1671,7 @@ def main() -> int:
     # Phase 18: the JAX package's headline configuration, track_video_mega at
     # 1 pass over the bench clip (2048 frames, chunk 512; bench.py:78-88),
     # with the counters reset just before: 0 px, only the 1-pass K1 launched,
-    # twice per frame; then 3 and 2 passes, each 0 px; frames/s of every tier
+    # once a chunk; then 3 and 2 passes, each 0 px; frames/s of every tier
     # from this run (the float32 one is phase 6's).
     for p in (1, 3, 2):
         reset_counts()
@@ -1489,9 +1679,8 @@ def main() -> int:
         # run_bench zeroes K1's counters just before its checked run and
         # reads them just after; the other kernels' stay 0 through its runs.
         others = {n_: c for n_, c in counts().items() if n_ != "K1"}
-        if (any(others.values()) or tier_result["kernel_launches"] != 2 * 2048
-                or tier_result["kernel_launches_by_passes"] != {0: 0, 1: 0, 2: 0, 3: 0,
-                                                                p: 2 * 2048}):
+        if (any(others.values()) or tier_result["kernel_launches"] != 4
+                or tier_result["kernel_launches_by_passes"] != {0: 0, 1: 0, 2: 0, 3: 0, p: 4}):
             raise AssertionError(f"main path at {p} passes launched {others}, "
                                  f"{tier_result['kernel_launches_by_passes']}")
         if tier_result["max_l1_err_px"] != 0:
@@ -1589,8 +1778,8 @@ def main() -> int:
 
     # Phase 21: the batch cadence.  track_video_mega(batch=4) over 2047
     # frames of the bench clip (chunks of 512; the last, of 511, leaves a
-    # 3-frame tail), counters reset just before; launches: a score and a
-    # commit per batch and one look-ahead launch for the tail.  As in phase
+    # 3-frame tail), counters reset just before; launches: one a chunk,
+    # look-ahead rows and tail included.  As in phase
     # 14, the batch-final frames equal the plain engine over those frames
     # under the contract, and every other row is the look-ahead row: the
     # pre-batch bbox, score -1, not updated, not global.
@@ -1656,9 +1845,9 @@ def main() -> int:
               f"{unit} {sec:.1f}" for unit, sec in _build.build_info["units"].items()))
     for tier, run in ladder_runs.items():
         rungs = run["rungs"]
-        print(f"ladder {tier}, us a frame (delta; score + commit kernels' device us): " + ", ".join(
+        print(f"ladder {tier}, us a frame (delta; the chunk kernel's device us): " + ", ".join(
             f"{r} {rungs[r]['us_per_frame']:.3f} ({run['deltas'][r]:+.3f}; "
-            f"{rungs[r]['score_us_per_frame']:.3f} + {rungs[r]['commit_us_per_frame']:.3f})"
+            f"{rungs[r]['kernel_us_per_frame']:.3f})"
             for r in bd.RUNGS)
             + f"; production K1 {run['production']:.3f} (vs full "
             f"{run['production'] - rungs['full']['us_per_frame']:+.3f}); bound "
@@ -1711,6 +1900,50 @@ def main() -> int:
     # phase 3's re-acquisition clip on the card against the CPU.
     check_full_map_on_card(dev, gframes[1:], mega_track_chunk(*gargs)[0].cpu().numpy(), gstate)
 
+    # Phase 27: K1 bit for bit against the parent tree's (PARENT_DIGESTS): the
+    # records, final state and final template at every tier, on phase 3's
+    # chunk and re-acquisition clip, the main path and the batch-4 clip.
+    from pvot_torch.ops.ncc_mega import _launch
+    from pvot_torch.ops.ncc_reference import score_tier
+
+    def launch_one(fr, st, cfg, kw):
+        out = _launch(lib, "one", fr[None], torch.stack(list(st.bbox)), st.template, st.t_mean,
+                      st.t_std, st.lost_count, st.use_global, [fr.shape[0]], cfg,
+                      torch.cuda.current_stream(dev).cuda_stream,
+                      passes=score_tier(kw.get("highest", True), kw.get("score_passes", 3)))
+        _build.check(out.err, "mega_track_chunk")
+        return out.rows, out.state_i, out.state_f, out.template
+
+    digests = k1_digests(dev, (spec, frames), (gspec, gframes), gconfig, launch_one)
+    differ = [f"{case} {tier}: {got} (parent {PARENT_DIGESTS[case][tier]})"
+              for case, by_tier in digests.items() for tier, got in by_tier.items()
+              if got != PARENT_DIGESTS[case][tier]]
+    if differ:
+        raise AssertionError("K1 differs from the parent tree's: " + "; ".join(differ))
+    print(f"K1 digests: {len(digests)} clips x {len(digests['chunk64'])} tiers, records, final "
+          f"state and template equal to the parent tree's bit for bit: {json.dumps(digests)}")
+
+    # Phase 28: the main path under torch.profiler: one kernel of the port's
+    # (the persistent chunk kernel), one launch a chunk, no commit kernel.
+    _, by_kernel, _ = profiled(lambda: track_video_mega(staged, state, config, chunk_size=512),
+                               "chunk_kernel")
+    # The port's kernels are in an anonymous namespace of their own;
+    # PyTorch's (the wrapper's small tensor ops) are under at::.
+    ours = {k: v for k, v in by_kernel.items() if k.startswith("void (anonymous namespace)::")}
+    if (len(ours) != 1 or "chunk_kernel" not in next(iter(ours))
+            or next(iter(ours.values()))[0] != n_main // 512
+            or any("commit_kernel" in k or "lookahead_kernel" in k for k in by_kernel)):
+        raise AssertionError(f"the main path's kernels under the profiler: {ours}")
+    prof_name, (prof_launches, prof_ms) = next(iter(ours.items()))
+    print(f"main path under torch.profiler: one kernel of the port, {prof_name[:90]}, "
+          f"{prof_launches} launches, {prof_ms / n_main * 1e3:.3f} us a frame on the device; "
+          f"no commit kernel")
+
+    # Phase 29 (with --parent only): the parent tree and this one in turns.
+    turns = in_turns(opts.parent, frames) if opts.parent else None
+    if turns:
+        print(f"in turns against the parent on {smi}: {json.dumps(turns['verdicts'])}")
+
     def tier_fields(tiers):
         return {f"{p}pass": v for p, v in tiers.items()}
 
@@ -1718,7 +1951,7 @@ def main() -> int:
         return {tier: {r: run["rungs"][r][key] for r in bd.RUNGS}
                 for tier, run in ladder_runs.items()}
 
-    # Phase 27.
+    # Phase 30.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -1751,6 +1984,9 @@ def main() -> int:
             "batch4_ms_per_frame": batch_ms,
             "batch4_bound_ms_per_frame": batch_bound,
             "batch4_bound_by": batch_by,
+            "digests_equal_parent": True,
+            "main_path_profiler_device_us_per_frame": prof_ms / n_main * 1e3,
+            "in_turns": turns,
         },
         {
             "name": "mega_track_chunk_multi",
@@ -1871,8 +2107,7 @@ def main() -> int:
             "library_ms": None,
             "ms_unit": "per local frame of the full rung (K1), 720p/80/r60, chunk 512, float32",
             "rungs_us_per_frame": ladder_fields("us_per_frame"),
-            "rungs_score_kernel_us_per_frame": ladder_fields("score_us_per_frame"),
-            "rungs_commit_kernel_us_per_frame": ladder_fields("commit_us_per_frame"),
+            "rungs_kernel_us_per_frame": ladder_fields("kernel_us_per_frame"),
             "deltas_us_per_frame": {tier: run["deltas"] for tier, run in ladder_runs.items()},
             "production_us_per_frame": {tier: run["production"]
                                         for tier, run in ladder_runs.items()},
@@ -1931,4 +2166,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-tree"]:  # a child of phase 29: time the tree at argv[2]
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(time_tree(sys.argv[3])))
+        sys.exit(0)
     sys.exit(main())

@@ -35,25 +35,31 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # radii .. one_minus_lr, passes, batch, stream
 _CONFIG = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P]
 SIGNATURES = {
+    # frames, n_frames, frame_h, frame_w, th, tw, state_i, state_f, tpl, state_i2,
+    # state_f2, tpl2, work, n_blocks, rows, then the configuration
     "pvot_mega_track_chunk": (
-        [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG],
         ctypes.c_int,
     ),
     "pvot_mega_track_chunk_multi": (
-        [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG],
         ctypes.c_int,
     ),
     "pvot_mega_track_chunk_objects": (
-        [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG],
         ctypes.c_int,
     ),
     # rung, then pvot_mega_track_chunk's arguments
     "pvot_mega_breakdown_chunk": (
-        [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, *_CONFIG],
+        [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG],
         ctypes.c_int,
     ),
+    "pvot_mega_work_bytes": ([_I, _I], ctypes.c_longlong),
     "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
-    "pvot_mega_score_blocks_per_sm": ([_I, _I, _I, _I], ctypes.c_int),
+    # th, tw, n_lanes, ext, passes
+    "pvot_mega_score_blocks_per_sm": ([_I, _I, _I, _I, _I], ctypes.c_int),
+    # rung, th, tw, passes
+    "pvot_mega_breakdown_blocks_per_sm": ([_I, _I, _I, _I], ctypes.c_int),
     # img, img_u8, img_h, img_w, row_stride, lane_stride, lanes, n_lanes, out_h,
     # out_w, tpl, tpl_stride, th, tw, t_mean, t_std, stat_stride, out, passes, stream
     "pvot_ncc_map": (

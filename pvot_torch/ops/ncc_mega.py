@@ -17,12 +17,13 @@ batch boundaries.
 `mega_track_chunk` (one stream), `mega_track_chunk_multi` (S streams) and
 `mega_track_chunk_objects` (K objects over one clip, templates of one size
 or zero-padded into a shared bucket) run the chunk through the hand-written
-Hopper kernels (pvot_torch/csrc/ncc_mega.cu: per frame one scoring launch
-over the whole card for every lane and one commit launch with a block per
-lane, the states resident in device memory) when their tensors lie on a
-CUDA device, and through the plain PyTorch versions beside them
-(`..._reference`) when they lie on the CPU.  A CUDA tensor never reaches a
-plain version: there the kernel runs or the call raises.
+Hopper kernel (pvot_torch/csrc/ncc_mega.cu: one persistent cooperative
+launch a chunk, whose blocks walk the scored frame steps together and meet
+at one grid barrier a step, the lanes' states and templates in device
+memory) when their tensors lie on a CUDA device, and through the plain
+PyTorch versions beside them (`..._reference`) when they lie on the CPU.  A
+CUDA tensor never reaches a plain version: there the kernel runs or the
+call raises, also when the card refuses the cooperative launch.
 
 They return (rows, final templates): the per-frame records in fields O_*
 (pvot/ops/ncc_mega.py:78-81; O_POISON is always 0), (F, 10) or (S, F, 10)
@@ -32,7 +33,7 @@ float32, and the templates after the chunk's EMA updates, (th, tw) or
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -54,12 +55,13 @@ BIG = 2**30
 # .supported): templates up to 256 px a side, spans up to 4 x 128.
 MAX_TEMPLATE = 256
 MAX_SPAN = 512
-# Shared memory one block may use on Hopper (227 KB), and the scoring
-# kernel's constants (kTileH, kTileW, kSplit and sizeof(LaneWork) in
-# csrc/ncc_mega.cu).
-SMEM_LIMIT = 232_448
+# Shared memory one block may use on Hopper (227 KB) less the 3 KB the chunk
+# kernel keeps for its static shared memory (kSmemLimit), and the kernel's
+# constants (kTileH, kTileW, kSplit and sizeof(LaneWork) in
+# csrc/mega_body.cuh).
+SMEM_LIMIT = 232_448 - 3072
 _TILE_H, _TILE_W, _SPLIT = 8, 16, 16
-_LANE_WORK_BYTES = 60
+_LANE_WORK_BYTES = 132
 
 
 def check_batch(batch) -> int:
@@ -70,15 +72,25 @@ def check_batch(batch) -> int:
 
 
 def chunk_launches(n_frames: int, batch: int = 1) -> int:
-    """Kernel launches of one chunk (csrc/ncc_mega.cu launch_chunk): a score
-    and a commit launch per scored frame step, t % batch == batch - 1, and
-    one launch for the look-ahead rows after the last of them when batch
-    does not divide the chunk."""
-    return 2 * (n_frames // batch) + (1 if n_frames % batch else 0)
+    """Kernel launches of one chunk (csrc/ncc_mega.cu launch_chunk): one
+    cooperative launch, whose blocks walk every scored frame step (t % batch
+    == batch - 1) and write every record, whatever the frames and the
+    cadence."""
+    return 1
+
+
+def score_grid(blocks_per_sm: int, n_sms: int) -> int:
+    """Blocks of a chunk launch: as many as the card holds at once (the
+    kernel's blocks per SM at its shared-memory plan, times the SMs), which
+    the cooperative launch requires of its grid; two an SM at 80 x 80, one
+    for a template staged in chunks."""
+    if blocks_per_sm < 1:
+        raise RuntimeError(f"the chunk kernel fits {blocks_per_sm} blocks an SM")
+    return blocks_per_sm * n_sms
 
 
 def score_smem_bytes(rows: int, tw: int, table_lanes: int) -> int:
-    """csrc/ncc_mega.cu score_smem_bytes: the lane table (none for one
+    """csrc/mega_body.cuh score_smem_bytes: the lane table (none for one
     lane), `rows` centered template rows, their input rows with row sums, and
     both halves' partial correlations and column sums."""
     tw4 = -(-tw // 4) * 4
@@ -109,7 +121,7 @@ class MegaGeometry:
         self.span_x, self.span_y = 2 * self.rx + 1, 2 * self.ry + 1
 
     def stage_rows(self, table_lanes: int = 1) -> int:
-        """csrc/ncc_mega.cu stage_rows: all th rows when they fit, else the
+        """csrc/mega_body.cuh stage_rows: all th rows when they fit, else the
         fewest equal chunks of the longer half that fit; -1 if none does."""
         if score_smem_bytes(self.th, self.tw, table_lanes) <= SMEM_LIMIT:
             return self.th
@@ -342,9 +354,31 @@ def _n_valid_columns(values, s: int, dev: torch.device, batch: int = 1) -> torch
     return _to_device_i32(host.expand(s, 2), dev)
 
 
+class Launch(NamedTuple):
+    """A chunk launch's outputs on the card: the CUDA error code, the records
+    (S, F, 10), and the template (S, th, round_up4(tw)) and state (S, 8)
+    int32 and (S, 4) float32 after the chunk, from whichever of the kernel's
+    two buffers holds them."""
+
+    err: int
+    rows: torch.Tensor
+    template: torch.Tensor
+    state_i: torch.Tensor
+    state_f: torch.Tensor
+
+
+def _grid_blocks(lib, dev: torch.device, th: int, tw: int, n_lanes: int, ext: bool,
+                 passes: int, rung=None) -> int:
+    """`score_grid` of the kernel a launch runs on `dev` (a rung's for the
+    ladder), from the card's occupancy of it."""
+    per_sm = (lib.pvot_mega_score_blocks_per_sm(th, tw, n_lanes, int(ext), passes)
+              if rung is None else lib.pvot_mega_breakdown_blocks_per_sm(rung, th, tw, passes))
+    return score_grid(per_sm, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std,
-            lost_count, use_global, n_valid, config: TrackerConfig, n_blocks: int,
-            stream, extents=None, passes: int = 0, batch: int = 1, rung=None):
+            lost_count, use_global, n_valid, config: TrackerConfig, stream, extents=None,
+            passes: int = 0, batch: int = 1, rung=None) -> Launch:
     """Run one C entry ("one", "multi" or "objects") on S lanes: frames (S, F,
     H, W) u8, each lane's frames contiguous, lanes `frames.stride(0)` apart (0
     for objects); the states stacked on S, all on frames' device.  extents:
@@ -352,12 +386,11 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
     objects whose extents differ get them as the kernel's extent table.
     passes: the score tier (0 float32, 1-3 bf16 passes); batch: the cadence.
     rung ("one" only): a stage of K1's rung ladder
-    (pvot_torch.tools.mega_breakdown) in place of K1's production kernels.
-    Returns (CUDA error code, rows (S, F, 10), padded templates (S, th,
-    round_up4(tw)))."""
+    (pvot_torch.tools.mega_breakdown) in place of K1's production kernel."""
     s, f, h, w = frames.shape
     th, tw = template.shape[-2:]
     extents = extents or [(th, tw)] * s
+    mixed = entry == "objects" and any(e != (th, tw) for e in extents)
     dev = frames.device
     i32, fl = torch.int32, torch.float32
     # state_i = [bx, by, bw, bh, lost, use_global, n_valid, _] per lane (the
@@ -375,47 +408,40 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
                           for i, (eh, ew) in enumerate(extents)])
     # state_f = [t_mean, t_std, sum_tc, _] per lane (the last field is padding).
     state_f = torch.stack([tm, t_std.reshape(s).to(fl), sum_tc, sum_tc], dim=1)
-    # The kernels update the templates in place, in their own buffer with the
-    # rows padded to a multiple of 4 columns (float4 loads); the padding
-    # columns are 0.
+    # The kernel reads the templates in their own buffer with the rows padded
+    # to a multiple of 4 columns (float4 loads); the padding columns are 0.
     tpl_pad = (torch.empty if tw % 4 == 0 else torch.zeros)(
         (s, th, tw + (-tw % 4)), dtype=fl, device=dev)
     tpl_pad[:, :, :tw] = tpl
+    # The second buffers of the state and the template (by step parity), the
+    # records, and the scratch (winners, partials, counters).
+    state_i2, state_f2 = torch.empty_like(state_i), torch.empty_like(state_f)
+    tpl2 = torch.zeros_like(tpl_pad)
     rows = torch.empty((s, f, N_LANES), dtype=fl, device=dev)
-    max_split = n_blocks // 2  # local tiles two blocks may share, per lane
-    part_val = torch.empty(s * n_blocks, dtype=fl, device=dev)
-    part_yx = torch.empty(2 * s * n_blocks, dtype=i32, device=dev)
-    split_part = torch.empty(max(1, s * max_split * 2 * 3 * _TILE_H * _TILE_W),
-                             dtype=fl, device=dev)
-    split_count = torch.zeros(max(1, s * max_split), dtype=i32, device=dev)
+    n_blocks = _grid_blocks(lib, dev, th, tw, s, mixed, passes, rung)
+    work = torch.empty(lib.pvot_mega_work_bytes(s, n_blocks), dtype=torch.uint8, device=dev)
     lr = float(config.template_update_lr)
-    tail = (rows.data_ptr(), config.search_radius_x, config.search_radius_y,
-            config.lost_frame_threshold, int(config.enable_global_search),
-            f32(config.min_confidence), f32(config.global_confidence),
-            f32(config.strong_confidence), f32(lr), f32(1.0 - lr), passes, batch, stream)
+    buffers = (state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(), state_i2.data_ptr(),
+               state_f2.data_ptr(), tpl2.data_ptr(), work.data_ptr(), n_blocks,
+               rows.data_ptr(), config.search_radius_x, config.search_radius_y,
+               config.lost_frame_threshold, int(config.enable_global_search),
+               f32(config.min_confidence), f32(config.global_confidence),
+               f32(config.strong_confidence), f32(lr), f32(1.0 - lr), passes, batch, stream)
     if entry == "objects":
-        mixed = any(e != (th, tw) for e in extents)
         ext = _to_device_i32(torch.tensor(extents), dev) if mixed else None
         err = lib.pvot_mega_track_chunk_objects(
             frames.data_ptr(), s, f, h, w, th, tw, None if ext is None else ext.data_ptr(),
-            state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(),
-            part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
-            split_part.data_ptr(), split_count.data_ptr(), *tail,
-        )
+            *buffers)
     elif entry == "multi":
-        err = lib.pvot_mega_track_chunk_multi(
-            frames.data_ptr(), frames.stride(0), s, f, h, w, th, tw,
-            state_i.data_ptr(), state_f.data_ptr(), tpl_pad.data_ptr(),
-            part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
-            split_part.data_ptr(), split_count.data_ptr(), *tail,
-        )
+        err = lib.pvot_mega_track_chunk_multi(frames.data_ptr(), frames.stride(0), s, f, h, w,
+                                              th, tw, *buffers)
     else:
-        args = (frames.data_ptr(), f, h, w, th, tw, state_i.data_ptr(), state_f.data_ptr(),
-                tpl_pad.data_ptr(), part_val.data_ptr(), part_yx.data_ptr(), n_blocks,
-                split_part.data_ptr(), split_count.data_ptr(), *tail)
+        args = (frames.data_ptr(), f, h, w, th, tw, *buffers)
         err = (lib.pvot_mega_track_chunk(*args) if rung is None
                else lib.pvot_mega_breakdown_chunk(rung, *args))
-    return err, rows, tpl_pad
+    if (f // batch) % 2:  # an odd number of steps ends in the second buffers
+        return Launch(err, rows, tpl2, state_i2, state_f2)
+    return Launch(err, rows, tpl_pad, state_i, state_f)
 
 
 def _check_cuda_inputs(frames_u8: torch.Tensor, ndim: int, states) -> None:
@@ -427,12 +453,6 @@ def _check_cuda_inputs(frames_u8: torch.Tensor, ndim: int, states) -> None:
     for name, v in states.items():
         if v.device != frames_u8.device:
             raise ValueError(f"{name} on {v.device}, frames on {frames_u8.device}")
-
-
-def _score_blocks(dev: torch.device) -> int:
-    """Score blocks a launch: two per SM (two 92 KB blocks fit an SM at the
-    80 x 80 headline geometry)."""
-    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def mega_track_chunk(
@@ -453,12 +473,12 @@ def mega_track_chunk(
     score tier (highest, score_passes) and the batch cadence of the module
     docstring.
 
-    On a CUDA device: `chunk_launches(F, batch)` kernel launches (2F at batch
-    1) on the current stream, no host synchronisation;
-    `mega_track_chunk.launches` grows by as many, and so does
-    `mega_track_chunk.launches_by_tier[p]` for the tier's pass count p (0:
-    float32).  On the CPU: the plain version.  Frames past `n_valid` commit
-    nothing."""
+    On a CUDA device: one cooperative launch on the current stream
+    (`chunk_launches`), whatever F and the batch, no host synchronisation;
+    it raises if the card refuses it.  `mega_track_chunk.launches` grows by
+    1, and so does `mega_track_chunk.launches_by_tier[p]` for the tier's pass
+    count p (0: float32).  On the CPU: the plain version.  Frames past
+    `n_valid` commit nothing."""
     passes = score_tier(highest, score_passes)
     batch = check_batch(batch)
     if frames_u8.device.type == "cpu":
@@ -478,14 +498,14 @@ def mega_track_chunk(
     lib = _build.load_library()
     dev = frames_u8.device
     with torch.cuda.device(dev):
-        err, rows, tpl_pad = _launch(
+        out = _launch(
             lib, "one", frames_u8[None], bbox, template, t_mean, t_std, lost_count,
-            use_global, [int(n_valid)], config, _score_blocks(dev),
-            torch.cuda.current_stream(dev).cuda_stream, passes=passes, batch=batch,
+            use_global, [int(n_valid)], config, torch.cuda.current_stream(dev).cuda_stream,
+            passes=passes, batch=batch,
         )
-        _build.check(err, "mega_track_chunk")
+        _build.check(out.err, "mega_track_chunk")
         _count(mega_track_chunk, chunk_launches(f, batch), passes)
-    return rows[0], tpl_pad[0, :, :tw].contiguous()
+    return out.rows[0], out.template[0, :, :tw].contiguous()
 
 
 def _count(wrapper, n: int, passes: int) -> None:
@@ -523,11 +543,10 @@ def mega_track_chunk_multi(
     bbox (S, 4), template (S, th, tw), t_mean, t_std, lost_count, use_global
     and n_valid (S,).  Frames t >= n_valid[s] commit nothing for stream s.
 
-    Tier and cadence as in `mega_track_chunk`.  On a CUDA device:
-    `chunk_launches(F, batch)` kernel launches on the current stream whatever
-    S is (2F at batch 1: one score launch over every stream and one commit
-    launch with a block per stream a frame), no host synchronisation; the
-    counters of `mega_track_chunk_multi` grow as K1's do.  Every score block
+    Tier and cadence as in `mega_track_chunk`.  On a CUDA device: one
+    cooperative launch on the current stream whatever S, F and the batch are
+    (`chunk_launches`), no host synchronisation; the counters of
+    `mega_track_chunk_multi` grow as K1's do.  At every frame step each block
     grid-strides over all streams' tiles, so a stream in re-acquisition gets
     the whole card.  On the CPU: the plain version."""
     passes = score_tier(highest, score_passes)
@@ -552,14 +571,14 @@ def mega_track_chunk_multi(
     lib = _build.load_library()
     dev = frames_u8.device
     with torch.cuda.device(dev):
-        err, rows, tpl_pad = _launch(
+        out = _launch(
             lib, "multi", frames_u8, bbox, template, t_mean, t_std, lost_count,
-            use_global, n_valid, config, _score_blocks(dev),
-            torch.cuda.current_stream(dev).cuda_stream, passes=passes, batch=batch,
+            use_global, n_valid, config, torch.cuda.current_stream(dev).cuda_stream,
+            passes=passes, batch=batch,
         )
-        _build.check(err, "mega_track_chunk_multi")
+        _build.check(out.err, "mega_track_chunk_multi")
         _count(mega_track_chunk_multi, chunk_launches(f, batch), passes)
-    return rows, tpl_pad[:, :, :tw].contiguous()
+    return out.rows, out.template[:, :, :tw].contiguous()
 
 
 reset_launches(mega_track_chunk_multi)
@@ -589,10 +608,11 @@ def mega_track_chunk_objects(
     tracks exactly as `mega_track_chunk` on its own th_k x tw_k template, and
     only that corner of its template changes.
 
-    Tier and cadence as in `mega_track_chunk`.  On a CUDA device:
-    `chunk_launches(F, batch)` kernel launches on the current stream whatever
-    K is, no host synchronisation; the counters of `mega_track_chunk_objects`
-    grow as K1's do.  On the CPU: the plain version."""
+    Tier and cadence as in `mega_track_chunk`.  On a CUDA device: one
+    cooperative launch on the current stream whatever K, F and the batch are
+    (`chunk_launches`), no host synchronisation; the counters of
+    `mega_track_chunk_objects` grow as K1's do.  On the CPU: the plain
+    version."""
     passes = score_tier(highest, score_passes)
     batch = check_batch(batch)
     extents = object_extents(template, bucket_extents)
@@ -618,19 +638,19 @@ def mega_track_chunk_objects(
     lib = _build.load_library()
     dev = frames_u8.device
     with torch.cuda.device(dev):
-        err, rows, tpl_pad = _launch(
+        out = _launch(
             lib, "objects", frames_u8.expand(k, f, h, w), bbox, template[:, :bh, :bw],
             t_mean, t_std, lost_count, use_global, n_valid, config,
-            _score_blocks(dev), torch.cuda.current_stream(dev).cuda_stream, extents=extents,
+            torch.cuda.current_stream(dev).cuda_stream, extents=extents,
             passes=passes, batch=batch,
         )
-        _build.check(err, "mega_track_chunk_objects")
+        _build.check(out.err, "mega_track_chunk_objects")
         _count(mega_track_chunk_objects, chunk_launches(f, batch), passes)
     if (bh, bw) == tuple(template.shape[-2:]):
-        return rows, tpl_pad[:, :, :bw].contiguous()
-    out = template.to(torch.float32).clone()
-    out[:, :bh, :bw] = tpl_pad[:, :, :bw]
-    return rows, out
+        return out.rows, out.template[:, :, :bw].contiguous()
+    full = template.to(torch.float32).clone()
+    full[:, :bh, :bw] = out.template[:, :, :bw]
+    return out.rows, full
 
 
 reset_launches(mega_track_chunk_objects)

@@ -4,20 +4,22 @@ The port of tools/mega_breakdown.py, which timed copies of the TPU mega
 kernel with stages switched off at compile time.  Here a rung is K1's own
 source (pvot_torch/csrc/mega_body.cuh) compiled with a stage parameter, so
 the ladder measures the production kernel: the `full` rung is K1.  The rungs
-are cumulative; each adds one stage of K1's two launches a frame:
+are cumulative; each adds one stage of K1's persistent launch, whose blocks
+walk the chunk's frames and meet at a grid barrier a frame:
 
-  empty      score: the lane's mode and window (lane_work) and each item's
-             tile; commit: the walk (bx + 1, by + (t & 1)) and a one-value
-             record — the launch floor
+  empty      the step's table (the walk bx + 1, by + (t & 1) in place of the
+             commit; the lane's mode and window), each item's tile, the
+             fold of a one-value record and the grid barrier — the floor of
+             a step
   dma        + the window rows' u8 loads from global memory
   convert    + the u8 -> f32 convert and the shared-memory store
   score_box  + the template staging, the box sums and the normalisation,
              the correlation left out
   score      + the correlation (float32 FMAs, or the bf16 passes on the
              tensor cores) and the combine of tiles two blocks share
-  argmax     + the block best and partials, the commit's fold, gate and
-             bbox/state commit, without the EMA
-  full       + the template EMA and stats: K1
+  argmax     + the block best and partials, their fold, and the deferred
+             commit's gate and bbox/state commit, without the EMA
+  full       + the template EMA and stats, in the staging: K1
 
 Deltas between consecutive rungs attribute a frame's time to the stages.
 The JAX ladder's `roll` rung has no counterpart: the port addresses its
@@ -43,11 +45,11 @@ search off (`local_config`); the bench clip has no global frame either way.
 It tracks the bench clip (SyntheticSpec(1280, 720, chunk + 1, 80x80,
 seed=1)) from its ground-truth box at radius 60 and prints one JSON line a
 rung (`us_per_frame`: time per frame between CUDA events over 8
-back-to-back chunk calls after a warm one, best of 3; `score_us_per_frame`
-and `commit_us_per_frame`: the two kernels' device time a frame under
-torch.profiler over one more call, so that the rest of `us_per_frame` is
-the card idle between launches; `chk`: the chunk's checksum sum), then the
-summary, then the production line.  With `--device cpu` it runs the plain
+back-to-back chunk calls after a warm one, best of 3; `kernel_us_per_frame`:
+the chunk kernel's device time a frame under torch.profiler over one more
+call, so that the rest of `us_per_frame` is the card idle between chunks;
+`chk`: the chunk's checksum sum), then the summary, then the production
+line.  With `--device cpu` it runs the plain
 versions and prints no time.
 """
 
@@ -64,7 +66,7 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.gray import ensure_gray_f32
 from pvot_torch.ops.ncc_mega import (
-    MegaGeometry, _check_cuda_inputs, _frame_mode, _launch, _score_blocks,
+    MegaGeometry, _check_cuda_inputs, _frame_mode, _grid_blocks, _launch, chunk_launches,
     mega_track_chunk, mega_track_chunk_reference,
 )
 from pvot_torch.ops.ncc_reference import ncc_scores
@@ -76,7 +78,7 @@ INT_RUNGS = ("empty", "dma", "convert")  # exact integer checksums, modulo 2^24
 # window moments in float64): a relative 1e-4 holds them with room.
 CHECKSUM_RTOL = 1e-4
 TIERS = {"highest": 0, "1pass": 1, "2pass": 2, "3pass": 3}
-H100_SCORE_BLOCKS = 2 * 132  # a score launch on an H100: two blocks an SM
+H100_SCORE_BLOCKS = 2 * 132  # a rung's grid on an H100: two blocks an SM
 N_CALLS = 8  # back-to-back chunk calls a timed run
 _MASK = (1 << 24) - 1
 _TILE_H, _TILE_W = 8, 16
@@ -103,10 +105,11 @@ def mega_breakdown_chunk(rung: str, frames_u8: torch.Tensor, state, config: Trac
                          tier: str = "highest"):
     """One chunk (F, H, W) u8 through the rung `rung` from `state` (a
     TrackerState): (rows (F, 10), template), as `mega_track_chunk` returns
-    them.  On a CUDA device: csrc/mega_breakdown.cu, 2F launches on the
-    current stream, no host synchronisation, `mega_breakdown_chunk.launches`
-    grows by 2F; the template must stage whole beside a tile (80 x 80 does).
-    On the CPU: the plain version."""
+    them.  On a CUDA device: csrc/mega_breakdown.cu, one cooperative launch
+    on the current stream (`chunk_launches`, as K1), no host
+    synchronisation, `mega_breakdown_chunk.launches` grows by 1; the
+    template must stage whole beside a tile (80 x 80 does).  On the CPU: the
+    plain version."""
     if rung not in RUNGS:
         raise ValueError(f"rung must be one of {RUNGS}, got {rung!r}")
     passes = TIERS[tier]
@@ -125,21 +128,21 @@ def mega_breakdown_chunk(rung: str, frames_u8: torch.Tensor, state, config: Trac
     lib = _build.load_library()
     dev = frames_u8.device
     with torch.cuda.device(dev):
-        err, rows, tpl_pad = _launch(
+        out = _launch(
             lib, "one", frames_u8[None], bbox, template, t_mean, t_std, lost, useg, [f],
-            config, _score_blocks(dev), torch.cuda.current_stream(dev).cuda_stream,
-            passes=passes, rung=RUNGS.index(rung))
-        _build.check(err, f"mega_breakdown_chunk({rung})")
-        mega_breakdown_chunk.launches += 2 * f
-    return rows[0], tpl_pad[0, :, :tw].contiguous()
+            config, torch.cuda.current_stream(dev).cuda_stream, passes=passes,
+            rung=RUNGS.index(rung))
+        _build.check(out.err, f"mega_breakdown_chunk({rung})")
+        mega_breakdown_chunk.launches += chunk_launches(f)
+    return out.rows[0], out.template[0, :, :tw].contiguous()
 
 
 mega_breakdown_chunk.launches = 0
 
 
 def _items(region, do_global: bool, n_blocks: int, th: int):
-    """The score launch's items for a one-lane frame (csrc/mega_body.cuh
-    score_body, kOne): (tile origins oy0, ox0, first and end template rows
+    """A step's items for a one-lane frame (csrc/mega_body.cuh chunk_body,
+    kOne): (tile origins oy0, ox0, first and end template rows
     u0, u1), one per item; two items a tile, one half of the template rows
     each, when the launch has a block for each."""
     ry0, ry1, rx0, rx1 = region
@@ -217,8 +220,8 @@ def mega_breakdown_reference(rung: str, frames_u8: torch.Tensor, state, config: 
     device.  `full`: K1's plain version; `argmax`: the same without the
     template EMA (no frame is strong enough); a rung before them walks the
     state as the kernel does and computes each frame's checksum, in torch ops
-    on the frames' device, for the score launch of that device (of an H100
-    for CPU frames), the template unchanged."""
+    on the frames' device, for the rung's grid on that device (an H100's,
+    two blocks an SM, for CPU frames), the template unchanged."""
     if rung not in RUNGS:
         raise ValueError(f"rung must be one of {RUNGS}, got {rung!r}")
     args = _state_args(state, frames_u8.shape[0])
@@ -228,9 +231,15 @@ def mega_breakdown_reference(rung: str, frames_u8: torch.Tensor, state, config: 
         return mega_track_chunk_reference(frames_u8, *args, config, **tier_kw(tier))
     f, h, w = frames_u8.shape
     dev = frames_u8.device
-    n_blocks = _score_blocks(dev) if dev.type == "cuda" else H100_SCORE_BLOCKS
     tpl = state.template.to(dev, torch.float32)
     th, tw = tpl.shape
+    if dev.type == "cuda":
+        from pvot_torch.ops import _build
+
+        n_blocks = _grid_blocks(_build.load_library(), dev, th, tw, 1, False, TIERS[tier],
+                                RUNGS.index(rung))
+    else:
+        n_blocks = H100_SCORE_BLOCKS
     t_mean, t_std = state.t_mean.to(dev, torch.float32), state.t_std.to(dev, torch.float32)
     sum_tc = torch.sum(tpl - t_mean)
     g = MegaGeometry((h, w), (th, tw), config)
@@ -275,22 +284,21 @@ def _best_us_per_frame(fn, n_frames: int) -> float:
     return best / (N_CALLS * n_frames)
 
 
-def _kernel_us_per_frame(fn, n_frames: int) -> dict:
-    """{"score", "commit"}: the device time a frame of the score and commit
-    kernels over one call under torch.profiler (0.0 where it saw none)."""
+def _kernel_us_per_frame(fn, n_frames: int) -> float:
+    """The chunk kernel's device time a frame over one call under
+    torch.profiler (0.0 where it saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {"score": 0.0, "commit": 0.0}
+    out = 0.0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        for kind in out:
-            if f"{kind}_kernel" in e.key:
-                out[kind] += us / n_frames
+        if "chunk_kernel" in e.key:
+            out += us / n_frames
     return out
 
 
@@ -317,9 +325,7 @@ def ladder(tier: str = "highest", chunk: int = 512, device=None, clip=None) -> d
                 return mega_breakdown_chunk(rung, staged, state, config, tier)
 
             line["us_per_frame"] = _best_us_per_frame(call, chunk)
-            kernels = _kernel_us_per_frame(call, chunk)
-            line["score_us_per_frame"] = kernels["score"]
-            line["commit_us_per_frame"] = kernels["commit"]
+            line["kernel_us_per_frame"] = _kernel_us_per_frame(call, chunk)
         result["rungs"][rung] = line
         print(json.dumps({rung: line}))
     if dev.type == "cuda":

@@ -30,6 +30,7 @@ from pvot_torch.convert import state_from_numpy
 from pvot_torch.parallel.multi import stack_states
 from pvot_torch.ops.ncc_mega import (
     O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, chunk_launches, mega_track_chunk,
+    score_grid,
     mega_track_chunk_reference,
 )
 
@@ -58,14 +59,28 @@ def _assert_outputs(got, want):
 
 
 def test_chunk_launches():
-    """A score and a commit launch per scored frame step, and one launch for
-    the look-ahead rows after the last one when batch does not divide the
-    chunk."""
-    assert chunk_launches(8) == 16
-    assert chunk_launches(8, 4) == 4
-    assert chunk_launches(7, 4) == 3
+    """One cooperative launch a chunk (csrc/ncc_mega.cu launch_chunk): its
+    blocks walk every scored frame step and write the look-ahead rows too,
+    whatever the frames and the cadence."""
+    assert chunk_launches(8) == 1
+    assert chunk_launches(8, 4) == 1
+    assert chunk_launches(7, 4) == 1
     assert chunk_launches(3, 4) == 1
-    assert chunk_launches(9, 3) == 6
+    assert chunk_launches(9, 3) == 1
+    assert chunk_launches(512) == 1
+
+
+@pytest.mark.parametrize("per_sm,n_sms,grid", [(2, 132, 264), (1, 132, 132), (3, 114, 342)])
+def test_score_grid_is_every_resident_block(per_sm, n_sms, grid):
+    """A chunk launch's grid is the kernel's blocks an SM (from the occupancy
+    of its shared-memory plan) times the SMs: the most a cooperative launch
+    takes."""
+    assert score_grid(per_sm, n_sms) == grid
+
+
+def test_score_grid_raises_when_no_block_fits():
+    with pytest.raises(RuntimeError, match="0 blocks an SM"):
+        score_grid(0, 132)
 
 
 def test_plain_k1_batch_matches_jax_kernel():

@@ -29,8 +29,9 @@ from pvot.tracker.scan import track_video as jax_track_video
 from pvot.tracker.state import init_state as jax_init_state
 from pvot_torch.convert import state_from_numpy
 from pvot_torch.ops.ncc_mega import (
-    O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, MegaGeometry, mega_track_chunk,
+    O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, SMEM_LIMIT, MegaGeometry, mega_track_chunk,
     mega_track_chunk_multi, mega_track_chunk_multi_reference, mega_track_chunk_reference,
+    score_smem_bytes,
 )
 from pvot_torch.parallel.multi import stack_states
 
@@ -183,6 +184,24 @@ def test_stage_rows_chunk_large_templates():
     assert MegaGeometry((720, 1280), (143, 143), cfg).stage_rows(256) < 143
 
 
+@pytest.mark.parametrize("rows,tw,lanes,nbytes", [
+    (80, 80, 1, 94_144), (80, 80, 8, 95_200), (80, 80, 200, 120_544), (104, 221, 1, 232_384),
+])
+def test_smem_plan_mirrors_the_kernel(rows, tw, lanes, nbytes):
+    """csrc/mega_body.cuh score_smem_bytes: a 132-byte LaneWork entry a lane
+    (none for one lane) before the staged rows and the input tile."""
+    assert score_smem_bytes(rows, tw, lanes) == nbytes
+
+
+def test_stage_rows_keep_room_for_static_shared_memory():
+    """The dynamic plan stays 3 KB below the block's 227 KB, for the chunk
+    kernel's static shared memory: a 104x221 template, whose whole plan
+    takes 232,384 bytes, stages in chunks."""
+    assert SMEM_LIMIT == 232_448 - 3072
+    g = MegaGeometry((720, 1280), (104, 221), pvot_torch.TrackerConfig())
+    assert g.stage_rows() < 104 and g.smem_bytes() <= SMEM_LIMIT
+
+
 def test_plain_chunk_160_template_matches_jax():
     """The repaired envelope on the plain K1: a 160x160 template, which the
     port raised on before."""
@@ -215,7 +234,7 @@ def test_cuda_multi_kernel_matches_plain_and_k1(streams, cuda_device):
     cfg = pvot_torch.TrackerConfig(**KW)
     before = mega_track_chunk_multi.launches
     rows, tpl = mega_track_chunk_multi(frames, *args, N_VALID, cfg)
-    assert mega_track_chunk_multi.launches == before + 2 * F
+    assert mega_track_chunk_multi.launches == before + 1  # one launch a chunk
     want_rows, want_tpl = mega_track_chunk_multi_reference(frames, *args, N_VALID, cfg)
     for s in range(4):
         r = rows[s].cpu().numpy()

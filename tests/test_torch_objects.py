@@ -424,4 +424,4 @@ def test_cuda_objects_launch_twice_per_frame(cases, cuda_device, k):
     before = mega_track_chunk_objects.launches
     mega_track_chunk_objects(torch.from_numpy(frames[1:]).to(cuda_device), *args, F,
                              pvot_torch.TrackerConfig(**kw))
-    assert mega_track_chunk_objects.launches == before + 2 * F
+    assert mega_track_chunk_objects.launches == before + 1  # one launch a chunk, whatever K

@@ -73,6 +73,8 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "pvot_ncc_chunk_rows": ([_I, _I], ctypes.c_int),
+    # th, tw, argmax, passes, smem (int out) -> tile height
+    "pvot_ncc_plan": ([_I, _I, _I, _I, _P], ctypes.c_int),
     # frames, n_frames, part_val, part_yx, out, stream
     "pvot_strip_best": ([_P, _I, _P, _P, _P, _P], ctypes.c_int),
     # frames, n_frames, out, stream

@@ -28,7 +28,7 @@ split the count by pass count (0: float32).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,7 +38,11 @@ from pvot_torch.ops.ncc_mega import reset_launches
 from pvot_torch.ops.ncc_reference import ncc_scores, template_stats
 
 _LANE_INTS = 6  # x0, y0, rx0, rx1, ry0, ry1 (csrc/ncc_pallas.cu kLane)
-_TILE_H, _TILE_W = 8, 16  # csrc/ncc_pallas.cu kTileH, kTileW
+_TILE_H, _TILE_W = 8, 16  # K5's tile (csrc/ncc_pallas.cu kTileH for kArgmax, kTileW)
+_GROUPS = 8  # template-row groups, a warp each (kGroups)
+_PARENT_BUDGET = 110 * 1024  # the plan whose chunk rows fix the sums (kParentBudget)
+_TWO_BLOCKS = 115_712  # shared-memory bytes a block, two blocks an SM (kTwoBlocks)
+_STATIC_BYTES = 256  # the kernel's static shared memory, rounded up (kStaticBytes)
 FAST_PASSES = 3  # the `pallas_fast` tier, `_dot_hl3`
 
 
@@ -139,9 +143,62 @@ def _lane_ints(rows: Sequence[Sequence[int]], dev: torch.device) -> torch.Tensor
     return host.to(dev)
 
 
+class NccPlan(NamedTuple):
+    """A K4/K5 launch plan (csrc/ncc_pallas.cu): output rows a tile, the
+    template rows of a chunk (the parent's `chunk_rows`, which fix the order
+    of the sums) and the block's dynamic shared-memory bytes."""
+
+    tile_h: int
+    chunk_rows: int
+    smem_bytes: int
+
+
+def _parent_in_stride(tw4: int) -> int:
+    return _TILE_W + tw4 + ((16 - (_TILE_W + tw4) % 32) + 32) % 32
+
+
+def chunk_rows(th: int, tw: int) -> int:
+    """Template rows a chunk holds: all th when the parent's plan (8-row
+    tiles) fits its 110 KB budget, else the most that do; -1 if not one row
+    does (csrc/ncc_pallas.cu `chunk_rows`, in closed form)."""
+    tw4 = -(-tw // 4) * 4
+    per_row = 4 * (tw4 + _parent_in_stride(tw4) + 2 * _TILE_W)
+    fixed = 4 * (7 * (_parent_in_stride(tw4) + 2 * _TILE_W) + _GROUPS * 8 * _TILE_W)
+    return min(th, (_PARENT_BUDGET - fixed) // per_row) if fixed + per_row <= _PARENT_BUDGET else -1
+
+
+def _in_stride(tw4: int, tile_h: int, passes: int) -> int:
+    if tile_h == 8:
+        return _parent_in_stride(tw4)
+    want = 4 if passes == 0 else 8
+    return _TILE_W + tw4 + ((want - (_TILE_W + tw4) % 32) + 32) % 32
+
+
+def _smem_bytes(rows: int, tw: int, tile_h: int, passes: int) -> int:
+    tw4 = -(-tw // 4) * 4
+    in_rows = rows + tile_h - 1
+    return 4 * (rows * tw4 + in_rows * _in_stride(tw4, tile_h, passes) + 2 * in_rows * _TILE_W
+                + _GROUPS * tile_h * _TILE_W)
+
+
+def ncc_plan(th: int, tw: int, argmax: bool, passes: int = 0) -> NccPlan:
+    """The launch plan of K5 (argmax) or K4 for a th x tw template at the
+    tier `passes`, as csrc/ncc_pallas.cu computes it (`pvot_ncc_plan`): K5
+    8-row tiles; K4 16-row tiles where their plan fits two blocks an SM, else
+    8-row ones.  Raises ValueError where not one template row fits."""
+    rows = chunk_rows(th, tw)
+    if rows < 1:
+        raise ValueError(f"template {th}x{tw}: not one row fits the kernel's shared memory")
+    tile_h = 8
+    if not argmax and _smem_bytes(rows, tw, 16, passes) + _STATIC_BYTES <= _TWO_BLOCKS:
+        tile_h = 16
+    return NccPlan(tile_h, rows, _smem_bytes(rows, tw, tile_h, passes))
+
+
 def _launch_args(images, templates, t_mean, t_std, n: int):
     """Checked kernel operands: (images, lane stride, templates, template
-    stride, t_mean, t_std, stat stride, u8 flag)."""
+    stride, t_mean, t_std, stat stride, u8 flag).  No copy where the
+    operands are already float32 with unit or stride-0 lanes."""
     dev = images.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -159,9 +216,30 @@ def _launch_args(images, templates, t_mean, t_std, n: int):
     else:
         templates = templates.contiguous()
         tpl_stride = templates.stride(0)
-    stats = torch.stack([_as_lanes(v.reshape(-1).to(torch.float32), n, 0, name)
-                         for name, v in (("t_mean", t_mean), ("t_std", t_std))])
-    return images, images.stride(0), templates, tpl_stride, stats, int(images.dtype == torch.uint8)
+    stats = [_as_lanes(v.reshape(-1).to(torch.float32), n, 0, name)
+             for name, v in (("t_mean", t_mean), ("t_std", t_std))]
+    if stats[0].stride(0) != stats[1].stride(0):  # one stride for both: lay them out alike
+        stats = [v.contiguous() for v in stats]
+    return (images, images.stride(0), templates, tpl_stride, stats[0], stats[1],
+            stats[0].stride(0), int(images.dtype == torch.uint8))
+
+
+def _scratch(dev: torch.device, stream: int, n: int, n_tiles: int):
+    """K5's scratch (part_val, part_yx, done) for n lanes of n_tiles tiles on
+    `stream`, made once per device, stream and shape: the kernel leaves
+    `done` at zero after every launch, and the launches of one stream run in
+    order."""
+    key = (dev, stream, n, n_tiles)
+    bufs = _SCRATCH.get(key)
+    if bufs is None:
+        bufs = (torch.empty(n * n_tiles, dtype=torch.float32, device=dev),
+                torch.empty(2 * n * n_tiles, dtype=torch.int32, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev))
+        _SCRATCH[key] = bufs
+    return bufs
+
+
+_SCRATCH: dict = {}
 
 
 def ncc_map_lanes(images, templates, t_mean, t_std, origins: Optional[Sequence] = None,
@@ -180,7 +258,7 @@ def ncc_map_lanes(images, templates, t_mean, t_std, origins: Optional[Sequence] 
     if images.device.type == "cpu":
         return ncc_map_lanes_reference(images, templates, t_mean, t_std, origins,
                                        (out_h, out_w), passes)
-    images, lane_stride, templates, tpl_stride, stats, u8 = _launch_args(
+    images, lane_stride, templates, tpl_stride, t_mean, t_std, stat_stride, u8 = _launch_args(
         images, templates, t_mean, t_std, n)
     from pvot_torch.ops import _build
 
@@ -193,9 +271,8 @@ def ncc_map_lanes(images, templates, t_mean, t_std, origins: Optional[Sequence] 
         err = lib.pvot_ncc_map(
             images.data_ptr(), u8, h, w, images.stride(-2), lane_stride,
             None if lanes is None else lanes.data_ptr(), n, out_h, out_w,
-            templates.data_ptr(), tpl_stride, th, tw, stats[0].data_ptr(),
-            stats[1].data_ptr(), 1, out.data_ptr(), passes,
-            torch.cuda.current_stream(dev).cuda_stream)
+            templates.data_ptr(), tpl_stride, th, tw, t_mean.data_ptr(), t_std.data_ptr(),
+            stat_stride, out.data_ptr(), passes, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "ncc_map_pallas")
         ncc_map_pallas.launches += 1
         ncc_map_pallas.launches_by_tier[passes] += 1
@@ -212,39 +289,68 @@ def region_argmax_lanes(images, templates, t_mean, t_std, lanes: Sequence[Sequen
     image and the window in region coordinates, inclusive.  span: (span_y,
     span_x), the positions of each region.  The region is read in place from
     the image; positions outside the window score -inf, and ties go to the
-    smallest y, then x.  On a CUDA device: one launch, no synchronisation;
-    `ncc_region_argmax_pallas.launches` grows by 1."""
-    _check_passes(passes)
-    out_h, out_w = span
-    n = len(lanes)
-    _check_origins([(x0, y0) for x0, y0, *_ in lanes])
+    smallest y, then x.  On a CUDA device: one copy of the lane ints and one
+    launch, no synchronisation (the scratch is kept per device, stream and
+    shape); `ncc_region_argmax_pallas.launches` grows by 1."""
     if images.device.type == "cpu":
+        _check_passes(passes)
+        _check_origins([(x0, y0) for x0, y0, *_ in lanes])
         return region_argmax_lanes_reference(images, templates, t_mean, t_std, lanes, span,
                                              passes)
-    images, lane_stride, templates, tpl_stride, stats, u8 = _launch_args(
+    call = region_argmax_operands(images, templates, t_mean, t_std, lanes, span, passes)
+    launch_region_argmax(call)
+    return call.out
+
+
+class K5Call(NamedTuple):
+    """One K5 launch's operands: the C entry's arguments before the stream
+    (`args`, pointers into `keep`), its output rows, its tier and the stream
+    whose scratch it holds."""
+
+    args: tuple
+    out: torch.Tensor
+    passes: int
+    stream: int
+    keep: tuple
+
+
+def region_argmax_operands(images, templates, t_mean, t_std, lanes: Sequence[Sequence[int]],
+                           span: Tuple[int, int], passes: int = 0) -> K5Call:
+    """K5's checked operands for CUDA tensors (`region_argmax_lanes`'
+    arguments): the lane ints copied to the card, the output rows made and
+    the scratch of the current stream found; no launch."""
+    _check_passes(passes)
+    _check_origins([(x0, y0) for x0, y0, *_ in lanes])
+    out_h, out_w = span
+    n = len(lanes)
+    images, lane_stride, templates, tpl_stride, t_mean, t_std, stat_stride, u8 = _launch_args(
         images, templates, t_mean, t_std, n)
     th, tw = templates.shape[-2:]
-    from pvot_torch.ops import _build
-
-    lib = _build.load_library()
     dev = images.device
     h, w = images.shape[-2:]
     n_tiles = -(-out_h // _TILE_H) * -(-out_w // _TILE_W)
-    with torch.cuda.device(dev):
-        lane_t = _lane_ints(lanes, dev)
-        out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-        part_val = torch.empty(n * n_tiles, dtype=torch.float32, device=dev)
-        part_yx = torch.empty(2 * n * n_tiles, dtype=torch.int32, device=dev)
-        done = torch.zeros(n, dtype=torch.int32, device=dev)
-        err = lib.pvot_ncc_region_argmax(
-            images.data_ptr(), u8, h, w, images.stride(-2), lane_stride, lane_t.data_ptr(), n,
-            out_h, out_w, templates.data_ptr(), tpl_stride, th, tw, stats[0].data_ptr(),
-            stats[1].data_ptr(), 1, out.data_ptr(), part_val.data_ptr(), part_yx.data_ptr(),
-            done.data_ptr(), passes, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "ncc_region_argmax_pallas")
-        ncc_region_argmax_pallas.launches += 1
-        ncc_region_argmax_pallas.launches_by_tier[passes] += 1
-    return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lane_t = _lane_ints(lanes, dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    part_val, part_yx, done = _scratch(dev, stream, n, n_tiles)
+    args = (images.data_ptr(), u8, h, w, images.stride(-2), lane_stride, lane_t.data_ptr(), n,
+            out_h, out_w, templates.data_ptr(), tpl_stride, th, tw, t_mean.data_ptr(),
+            t_std.data_ptr(), stat_stride, out.data_ptr(), part_val.data_ptr(),
+            part_yx.data_ptr(), done.data_ptr(), passes)
+    return K5Call(args, out, passes, stream, (images, templates, t_mean, t_std, lane_t,
+                                              part_val, part_yx, done))
+
+
+def launch_region_argmax(call: K5Call) -> None:
+    """Launch K5 on `call`'s operands on their device and stream, and count
+    it."""
+    from pvot_torch.ops import _build
+
+    with torch.cuda.device(call.out.device):
+        err = _build.load_library().pvot_ncc_region_argmax(*call.args, call.stream)
+    _build.check(err, "ncc_region_argmax_pallas")
+    ncc_region_argmax_pallas.launches += 1
+    ncc_region_argmax_pallas.launches_by_tier[call.passes] += 1
 
 
 def _stats(templ, t_mean, t_std):

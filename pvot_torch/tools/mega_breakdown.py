@@ -284,8 +284,9 @@ def _best_us_per_frame(fn, n_frames: int) -> float:
     return best / (N_CALLS * n_frames)
 
 
-def _kernel_us_per_frame(fn, n_frames: int) -> float:
-    """The chunk kernel's device time a frame over one call under
+def device_us_per_frame(fn, n_frames: int, kernel: str = "chunk_kernel") -> float:
+    """The device time a frame of the CUDA kernels whose name holds `kernel`
+    (by default the chunk kernel) over one call of fn() under
     torch.profiler (0.0 where it saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,7 +298,7 @@ def _kernel_us_per_frame(fn, n_frames: int) -> float:
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        if "chunk_kernel" in e.key:
+        if kernel in e.key:
             out += us / n_frames
     return out
 
@@ -325,7 +326,7 @@ def ladder(tier: str = "highest", chunk: int = 512, device=None, clip=None) -> d
                 return mega_breakdown_chunk(rung, staged, state, config, tier)
 
             line["us_per_frame"] = _best_us_per_frame(call, chunk)
-            line["kernel_us_per_frame"] = _kernel_us_per_frame(call, chunk)
+            line["kernel_us_per_frame"] = device_us_per_frame(call, chunk)
         result["rungs"][rung] = line
         print(json.dumps({rung: line}))
     if dev.type == "cuda":

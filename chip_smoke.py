@@ -186,7 +186,23 @@ persistent launch a chunk.  Phases, in order, none of them caught:
      rungs show the kernel's change and not the wrapper's (phase 29 times
      the parent's wrapper); then K4's and K5's device times by the graph
      route;
- 32. print the kernels' JSON line (each kernel's time beside its plain
+ 32. serving over the scan engines and the remaining surfaces, each drive
+     with the counters reset just before and read just after: (a)
+     serve_streams(backend="shared") over phase 7's 8 streams, every stream
+     0 px and equal to its own track_stream(shared), one K5 launch a
+     lockstep frame step, K4 on the steps where a lane is global, no K1-K3,
+     its frames/s beside phase 7's mega path; (b) serve_objects(shared) at K
+     = 4 on phase 13's clip (one object from outside the frame, so K4 runs),
+     each object equal to track_video_multi(shared), the target 0 px; (c)
+     the route out of the mega envelope: two 1080p streams at radius 300
+     (span 601) through serve_streams(backend="mega"), which serves on the
+     CUDA engine's K4 region path: no K1-K3, 0 px; (d) pvot-torch-serve
+     --search-radius 300 --scan-backend shared, exit 0, K4 only; (e)
+     mega_chunk_step, one K1 launch, its rows and final template held to
+     K1's plain version on phase 8's chunk; (f)
+     pvot-torch --host over 128 frames of phase 10's clip, no kernel, its
+     boxes phase 10's, and which host NCC ran;
+ 33. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
      FP32 peak, or at the bf16 tensor-core peak times passes for a tier, and
      its bytes at the memory rate, counted from this run's records; for the
@@ -208,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import hashlib
+import itertools
 import json
 import math
 import re
@@ -1415,8 +1432,8 @@ def main(argv=None) -> int:
     state = state_at(spec, frames, 0, dev)
     chunk = torch.from_numpy(frames[1:65]).to(dev)
     args = chunk_args(chunk, state, config)
-    k1_err = compare("K1 parity 720p tracked chunk", mega_track_chunk(*args),
-                     mega_track_chunk_reference(*args))
+    k1_plain = mega_track_chunk_reference(*args)
+    k1_err = compare("K1 parity 720p tracked chunk", mega_track_chunk(*args), k1_plain)
     n = chunk.shape[0]
     ms = time_ms(lambda: mega_track_chunk(*args), 10) / n
     plain_ms = time_ms(lambda: mega_track_chunk_reference(*args), 1) / n
@@ -2474,6 +2491,126 @@ def main(argv=None) -> int:
                            lambda launch, n: rsb.graph_us(launch, n) / 1e3)
     print(f"K4/K5 device ms a launch, graph route, on {smi}: {json.dumps(k45_ms)}")
 
+    # Phase 32: serving over the scan engines and the remaining surfaces,
+    # each drive with the counters reset just before and read just after.
+    from pvot_torch.cli.serve import main as serve_main
+    from pvot_torch.io.synthetic import generate_gray_frames
+    from pvot_torch.runtime import native
+    from pvot_torch.tracker.mega import mega_chunk_step
+
+    def lockstep_global_steps(outs, n_frames):
+        """Frame steps of a lockstep run on which some live lane searched
+        globally (an ended lane keeps a state that these clips leave local)."""
+        return sum(any(t < n and bool(o.used_global[t]) for o, n in zip(outs, n_frames))
+                   for t in range(max(n_frames)))
+
+    t_phase = time.perf_counter()
+    # (a) phase 7's 8 streams on the CUDA engine: one K5 launch a lockstep
+    # frame step for all 8 lanes, K4 on a step where a lane is global.
+    reset_counts()
+    t0 = time.perf_counter()
+    _, scan_served = serve_streams(
+        [iter(frames[o + 1 : o + 1 + n]) for o, n in zip(offsets, lengths)], starts,
+        frames.shape[1:], config, backend="shared", chunk_size=chunk_size)
+    scan_s = time.perf_counter() - t0
+    scan_counts = counts()
+    scan_glob = lockstep_global_steps(scan_served, lengths)
+    expect_counts("serve_streams(shared)", K5=max(lengths), K4=scan_glob)
+    for s_, (o, n) in enumerate(zip(offsets, lengths)):
+        if scan_served[s_].bbox.shape[0] != n or stream_err_px(spec, o, scan_served[s_].bbox):
+            raise AssertionError(f"serve_streams(shared) stream {s_}: off the ground truth or "
+                                 f"{scan_served[s_].bbox.shape[0]} records for {n} frames")
+        _, alone = track_stream(iter(frames[o + 1 : o + 1 + n]), unstack_state(starts, s_),
+                                frames.shape[1:], config, backend="shared", chunk_size=chunk_size)
+        compare_outputs(f"serve_streams(shared) stream {s_} vs track_stream(shared)",
+                        scan_served[s_], alone)
+    scan_fps, mega_serve_fps = total / scan_s, total / serve_s
+    print(f"scan serving: serve_streams(backend=\"shared\") over phase 7's 8 streams, {total} "
+          f"frames in {scan_s:.3f} s: serve_fps {scan_fps:.1f} against the mega path's "
+          f"{mega_serve_fps:.1f} (phase 7); every stream 0 px and equal to its own "
+          f"track_stream(shared); {scan_counts['K5']} K5 launches ({max(lengths)} lockstep "
+          f"frame steps), {scan_counts['K4']} K4 ({scan_glob} global steps), no K1-K3; on {smi}")
+    # (b) K = 4 objects on phase 13's clip, one from outside the frame.
+    reset_counts()
+    _, ob_served = serve_objects(iter(oclip[1:]), init_multi_state(uni, urois), oclip.shape[1:],
+                                 config, backend="shared", chunk_size=16)
+    ob_counts = counts()
+    expect_counts("serve_objects(shared) K=4", K5=of, K4=n_mglob)
+    for k in range(4):
+        compare_outputs(f"serve_objects(shared) object {k} vs track_video_multi(shared)",
+                        StepOutput(*(v[:, k] for v in ob_served)),
+                        StepOutput(*(v[:, k] for v in m_out)))
+    if max_l1_err_px(spec, ob_served.bbox[:, 0]) != 0:
+        raise AssertionError("serve_objects(shared): the target object is off the ground truth")
+    print(f"scan serving objects: K=4 over phase 13's clip, {of} K5 launches and {n_mglob} K4 "
+          f"(the object from outside), the target 0 px, every object equal to "
+          f"track_video_multi(shared)")
+    # (c) out of the envelope: 1080p at radius 300 (span 601) through
+    # serve_streams(backend="mega"), which serves on the CUDA engine's K4
+    # region path.
+    wspecs = [SyntheticSpec(width=1920, height=1080, num_frames=2049, seed=s_) for s_ in (1, 2)]
+    wclips = [np.stack(list(itertools.islice(generate_gray_frames(sp), 65))) for sp in wspecs]
+    wconfig = TrackerConfig(search_radius_x=300, search_radius_y=300)
+    if MegaGeometry((1080, 1920), (80, 80), wconfig).supported():
+        raise AssertionError("span 601 lies inside the mega envelope")
+    reset_counts()
+    t0 = time.perf_counter()
+    _, wide = serve_streams([iter(c[1:]) for c in wclips],
+                            stack_states([state_at(sp, c, 0, dev) for sp, c in zip(wspecs, wclips)]),
+                            (1080, 1920), wconfig, chunk_size=32)
+    wide_s = time.perf_counter() - t0
+    wide_counts = counts()
+    wide_glob = lockstep_global_steps(wide, [64, 64])
+    expect_counts("span 601 through backend=mega", K4=64 + wide_glob)
+    if any(max_l1_err_px(sp, o.bbox) for sp, o in zip(wspecs, wide)):
+        raise AssertionError("span 601: off the ground truth")
+    print(f"out of the envelope: 2 streams at 1080p/80/r300 (span 601) through "
+          f"serve_streams(backend=\"mega\"): no K1-K3, {wide_counts['K4']} K4 launches "
+          f"({wide_glob} global steps), 0 px, {128 / wide_s:.1f} frames/s")
+    # (d) the same route from the command line, on --scan-backend shared.
+    reset_counts()
+    rc = serve_main(["--synthetic", "1280x720x2049", "--max-frames", "32", "--streams", "2",
+                     "--search-radius", "300", "--scan-backend", "shared", "--chunk-size", "16",
+                     "--device", "cuda"])
+    cli_scan_counts = counts()
+    if rc != 0 or cli_scan_counts["K4"] < 32 or any(
+            cli_scan_counts[k] for k in ("K1", "K2", "K3", "K5")):
+        raise AssertionError(f"pvot-torch-serve --scan-backend shared exited {rc}, launches "
+                             f"{cli_scan_counts}")
+    print(f"pvot-torch-serve --search-radius 300 --scan-backend shared: exit 0, "
+          f"{cli_scan_counts['K4']} K4 launches and no other")
+    # (e) mega_chunk_step: one K1 launch for phase 8's 64-frame chunk, its
+    # rows and final template held to K1's plain version on those frames
+    # (phase 8's k1_plain, which no mega_chunk_step code computed).
+    reset_counts()
+    rows64, final64 = mega_chunk_step(chunk, state, 64, config)
+    step_k1 = counts()["K1"]
+    expect_counts("mega_chunk_step", K1=1)
+    compare("mega_chunk_step vs K1's plain version", (rows64, final64.template), k1_plain)
+    print(f"mega_chunk_step: {step_k1} K1 launch, its 64 rows and final template held to K1's "
+          f"plain version")
+    # (f) pvot-torch --host over phase 10's clip: no kernel, the bbox of
+    # track_stream(shared) (phase 10's pvot-torch --shared).
+    n_host = 128
+    traj_h = "build/chip_smoke_host_trajectory.jsonl"
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["--synthetic", f"1280x720x{n_main + 1}", "--max-frames", str(n_host),
+                   "--first", "--roi", f"{cx},{cy},{cw},{ch}", "--host", "--no-display",
+                   "--trajectory-out", traj_h])
+    host_s = time.perf_counter() - t0
+    expect_counts("pvot-torch --host")
+    with open(traj_h) as f:
+        host_boxes = np.array([json.loads(line)["bbox"] for line in f], np.int32)
+    if (rc != 0 or host_boxes.shape != (n_host, 4)
+            or not np.array_equal(host_boxes, cli_out.bbox[:n_host])):
+        raise AssertionError(f"pvot-torch --host exited {rc}, or its boxes differ from "
+                             "track_stream(shared)'s")
+    host_ncc = "native C++ (libpvot)" if native.available() else "numpy"
+    print(f"pvot-torch --host: {n_host} frames in {host_s:.3f} s, no kernel launched, bbox "
+          f"equal to track_stream(shared)'s, host NCC {host_ncc}")
+    print(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+
     def tier_fields(tiers):
         return {f"{p}pass": v for p, v in tiers.items()}
 
@@ -2481,7 +2618,7 @@ def main(argv=None) -> int:
         return {tier: {r: run["rungs"][r][key] for r in bd.RUNGS}
                 for tier, run in ladder_runs.items()}
 
-    # Phase 32.
+    # Phase 33.
     print(json.dumps({"kernels": [
         {
             "name": "mega_track_chunk",
@@ -2515,6 +2652,7 @@ def main(argv=None) -> int:
             "batch4_bound_ms_per_frame": batch_bound,
             "batch4_bound_by": batch_by,
             "digests_equal_parent": True,
+            "mega_chunk_step_launches": step_k1,
             "main_path_profiler_device_us_per_frame": prof_ms / n_main * 1e3,
             "in_turns": turns,
         },
@@ -2590,6 +2728,11 @@ def main(argv=None) -> int:
             "region_1080p_160_r160_device_ms": k45_ms["k4_region_f32_ms"],
             "region_1080p_160_r160_profiler_ms": map_region_ms,
             "digests_equal_parent": True,
+            "scan_serving_launches": {
+                "serve_streams_shared_8_streams": scan_counts["K4"],
+                "serve_objects_shared_k4": ob_counts["K4"],
+                "span601_1080p_backend_mega": wide_counts["K4"],
+                "cli_span601_720p_scan_backend_shared": cli_scan_counts["K4"]},
             "tiers": {"3pass": dict(max_abs_err=map3_err, ms=k45_ms["k4_region_3pass_ms"],
                                     profiler_ms=map3_ms, plain_ms=map3_plain,
                                     bound_ms=map3_bound, bound_by=map3_by,
@@ -2620,6 +2763,11 @@ def main(argv=None) -> int:
             "mega_fps_same_clip": n_main / mega_s,
             "mega_host_reads_per_frame": mega_reads,
             "digests_equal_parent": True,
+            "scan_serving_launches": {
+                "serve_streams_shared_8_streams": scan_counts["K5"],
+                "serve_objects_shared_k4": ob_counts["K5"]},
+            "scan_serve_fps": scan_fps,
+            "mega_serve_fps": mega_serve_fps,
             "region_step_ladder": steps,
             "region_step_ladder_in_turns": [(tree, b, res["rungs"], res["diffs"], res["k5"])
                                             for tree, b, res in step_runs],

@@ -1,9 +1,8 @@
-"""pvot-torch: track one video on one card (the port of pvot/cli/main.py's
-headless surface).
+"""pvot-torch: track one video on one card (the port of pvot/cli/main.py).
 
     pvot-torch [video] [--cpu|--shared|--const|--const_tiled|--mega|--auto|
-               --fast|--pallas_fast] [--batch=N] [--record] [--first]
-               --roi X,Y,W,H
+               --fast|--pallas_fast|--host] [--batch=N] [--record] [--first]
+               [--roi X,Y,W,H]
 
 plus --start-frame, --output, --max-frames, --synthetic WxHxF, --strategy,
 --chunk-size, the radius and confidence knobs, --no-global-search,
@@ -16,10 +15,17 @@ an engine flag composes with --batch=N as in the JAX CLI, and --mega with
 --batch=N runs the chunk kernel's in-kernel cadence.  Output naming matches
 the reference (output/<base>_<mode>[_<batch>]<ext>).
 
-Not ported, each exits with code 2 and names its ROADMAP item: --host
-(A11), the GUI ROI selection that the JAX CLI opens without --roi, and its
-live display window (A11).  --record needs OpenCV, which the card's machine
-does not have.
+--host runs the accelerator-free host engine (pvot_torch.models.host: the
+native C++ NCC, or its numpy twin where no toolchain builds it, and a host
+loop; no tensor, no card) and says on stderr which NCC ran; it has no batch
+mode, so --host with --batch=N exits with code 2, as in the JAX CLI.
+Without --roi the JAX CLI's GUI opens: a frame preview (ENTER picks the
+frame, ESC quits; --first skips it) and cv2.selectROI; a run with no DISPLAY,
+or with --no-display, exits with code -1 and "DISPLAY not set".  With a
+DISPLAY and neither --record nor --no-display, the tracked frames play in a
+live window capped at 1280x720 (display_downscale).  The GUI, the live window
+and --record need OpenCV, imported only when they run: the card's machine
+does not have it.
 """
 
 from __future__ import annotations
@@ -44,10 +50,7 @@ _MODE_FLAGS = {
     "--auto": "auto",
     "--fast": "fast",
     "--pallas_fast": "pallas_fast",
-}
-# Mode flags of the JAX CLI that the port does not have yet.
-_NOT_PORTED = {
-    "--host": "the host engine, pvot/models/host.py (ROADMAP A11)",
+    "--host": "host",
 }
 
 
@@ -66,16 +69,13 @@ def generate_output_path(video_path: str, mode: str, batch_size: int) -> str:
 
 def parse_args(argv: List[str]):
     """The reference's flag spelling (--batch=N, the mode flags) alongside
-    the extended options; not-ported flags are kept in args.not_ported."""
+    the extended options."""
     engine = None
     batch_size = 0
-    not_ported = []
     passthrough = []
     for arg in argv:
         if arg in _MODE_FLAGS:
             engine = _MODE_FLAGS[arg]
-        elif arg in _NOT_PORTED:
-            not_ported.append(arg)
         elif arg.startswith("--batch="):
             batch_size = max(1, int(arg.split("=", 1)[1] or 1))
         else:
@@ -114,10 +114,11 @@ def parse_args(argv: List[str]):
     p.add_argument("--device", default="cuda",
                    help="torch device to track on (cpu runs the kernels' plain versions)")
     args = p.parse_args(passthrough)
-    args.not_ported = not_ported
     args.batch_size = batch_size
     args.mode = "batch" if batch_size else (engine or "cuda")
     args.engine = engine or "cuda"
+    if args.mode == "batch" and args.engine == "host":
+        p.error("--host has no batch mode; drop --batch=N or the engine flag")
     if args.search_radius is not None:
         args.search_radius_x = args.search_radius_y = args.search_radius
     return args
@@ -205,31 +206,84 @@ def per_frame_fps(timings, n_frames: int, fallback: float) -> np.ndarray:
     return fps
 
 
+# Display cap of the reference demo (tracker_ghc/src/main.cpp:250-259).
+_MAX_DISPLAY_W = 1280
+_MAX_DISPLAY_H = 720
+
+
+def display_downscale(frame_bgr: np.ndarray) -> np.ndarray:
+    """A frame downscaled to fit 1280x720 for display, its aspect kept
+    (pvot/cli/main.py:249: min(1, min(maxW/cols, maxH/rows)), INTER_AREA);
+    the input itself when it fits."""
+    h, w = frame_bgr.shape[:2]
+    scale = min(1.0, min(_MAX_DISPLAY_W / w, _MAX_DISPLAY_H / h))
+    if scale >= 1.0:
+        return frame_bgr
+    import cv2
+
+    return cv2.resize(frame_bgr, None, fx=scale, fy=scale, interpolation=cv2.INTER_AREA)
+
+
 def _select_roi(args, source: FrameSource):
-    """(start frame, roi, template frame) from --roi; the JAX CLI's GUI
-    selector is not ported."""
+    """(start frame, roi, template frame) from --roi, or from the JAX CLI's
+    GUI (pvot/cli/main.py:299-345): a frame preview where ENTER picks the
+    frame and ESC quits (skipped with --first), then cv2.selectROI."""
     start = 0 if args.first else args.start_frame
-    if not args.roi:
-        print("GUI ROI selection is not ported to pvot_torch yet (ROADMAP A11): "
-              "pass --roi X,Y,W,H", file=sys.stderr)
-        raise SystemExit(2)
-    try:
-        x, y, w, h = (int(v) for v in args.roi.split(","))
-    except ValueError:
-        print(f"Invalid --roi {args.roi!r}: expected X,Y,W,H integers", file=sys.stderr)
-        raise SystemExit(2)
-    fh, fw = source.shape
-    if w <= 0 or h <= 0:
+    if args.roi:
+        try:
+            x, y, w, h = (int(v) for v in args.roi.split(","))
+        except ValueError:
+            print(f"Invalid --roi {args.roi!r}: expected X,Y,W,H integers", file=sys.stderr)
+            raise SystemExit(2)
+        fh, fw = source.shape
+        if w <= 0 or h <= 0:
+            print("No template selected", file=sys.stderr)
+            raise SystemExit(-1)
+        if x < 0 or y < 0 or x + w > fw or y + h > fh:
+            print(f"--roi {args.roi} lies outside the {fw}x{fh} frame", file=sys.stderr)
+            raise SystemExit(2)
+        return start, (x, y, w, h), _nth_frame_or_exit(source, start)
+    if args.no_display or not os.environ.get("DISPLAY"):
+        print("DISPLAY not set\n(headless runs need --roi X,Y,W,H)", file=sys.stderr)
+        raise SystemExit(-1)
+    import cv2
+
+    frame = None
+    if not args.first:
+        print("Use the preview window to pick a frame that contains the target object.\n"
+              "Press ENTER to select the current frame. Press ESC to quit.")
+        cv2.namedWindow("Frame Preview", cv2.WINDOW_NORMAL)
+        idx = start - 1
+        for frame in source.frames(start):
+            idx += 1
+            cv2.imshow("Frame Preview", frame)  # raw resolution, as the reference shows it
+            key = cv2.waitKey(30)
+            if key == 27:
+                print("Template selection cancelled by user.")
+                raise SystemExit(0)
+            if key in (13, 10):
+                break
+        else:
+            print("Reached End of Video.", file=sys.stderr)
+            raise SystemExit(-1)
+        cv2.destroyWindow("Frame Preview")
+        start = idx
+    if frame is None:
+        frame = _nth_frame_or_exit(source, start)
+    roi = cv2.selectROI("Select Template", frame, False, False)
+    cv2.destroyWindow("Select Template")
+    if roi[2] == 0 or roi[3] == 0:
         print("No template selected", file=sys.stderr)
         raise SystemExit(-1)
-    if x < 0 or y < 0 or x + w > fw or y + h > fh:
-        print(f"--roi {args.roi} lies outside the {fw}x{fh} frame", file=sys.stderr)
-        raise SystemExit(2)
-    frame = source.nth_frame(start)
+    return start, tuple(int(v) for v in roi), frame
+
+
+def _nth_frame_or_exit(source: FrameSource, idx: int) -> np.ndarray:
+    frame = source.nth_frame(idx)
     if frame is None:
         print(f"Cannot open video: {source.path}", file=sys.stderr)
         raise SystemExit(-1)
-    return start, (x, y, w, h), frame
+    return frame
 
 
 def _draw(frame_bgr: np.ndarray, bbox, fps: Optional[float] = None) -> None:
@@ -242,33 +296,82 @@ def _draw(frame_bgr: np.ndarray, bbox, fps: Optional[float] = None) -> None:
                     (0, 255, 0), 2)
 
 
+def _replay(source: FrameSource, track_from: int, bboxes, frame_fps, first, first_roi,
+            output_path: Optional[str] = None) -> None:
+    """The drawing pass (pvot/cli/main.py:515-542): re-decode the tracked
+    frames and draw each box and its FPS; write them to `output_path` after
+    the template frame `first` with its box or, without a path, play them in
+    a live window capped at 1280x720 (ESC stops it)."""
+    writer = None
+    if output_path:
+        from pvot_torch.io.video import VideoWriter
+
+        fh, fw = source.shape
+        writer = VideoWriter(output_path, source.fps, (fw, fh))
+        first = first.copy()
+        _draw(first, first_roi)
+        writer.write(first)
+    else:
+        import cv2
+    try:
+        for i, frame in enumerate(source.frames(track_from, len(bboxes))):
+            _draw(frame, bboxes[i], frame_fps[i])
+            if writer:
+                writer.write(frame)
+                continue
+            cv2.imshow("Tracking", display_downscale(frame))
+            if cv2.waitKey(1) == 27:
+                break
+    finally:
+        if writer:
+            writer.close()
+
+
+def _track_host(frame_iter, templ: np.ndarray, roi, lost: int, use_global: bool, config,
+                timings: list):
+    """--host: the host engine's stream loop over numpy (no tensor touches a
+    card), the final state as CPU tensors for --checkpoint-out.  Says on
+    stderr which NCC ran: the native library or its numpy twin."""
+    from pvot_torch.convert import state_from_numpy
+    from pvot_torch.models.host import track_stream_host
+    from pvot_torch.runtime import native
+    from pvot_torch.tracker.state import StepOutput
+
+    engine = "native C++ (libpvot)" if native.available() else "numpy (no native library)"
+    print(f"Host NCC engine: {engine}", file=sys.stderr)
+    final, out = track_stream_host(frame_iter, templ, roi, config, lost_count=lost,
+                                   use_global=use_global, timings=timings)
+    bx, by, bw, bh = final["bbox"]
+    state = state_from_numpy(dict(
+        bbox_x=bx, bbox_y=by, bbox_w=bw, bbox_h=bh, template=final["template"],
+        t_mean=np.float32(final["t_mean"]), t_std=np.float32(final["t_std"]),
+        lost_count=final["lost_count"], use_global=final["use_global"]), device="cpu")
+    return state, StepOutput(**out)
+
+
 def run_tracking(args) -> int:
     from pvot_torch.io.gray import bgr_to_gray_u8, gray_u8_to_f32
     from pvot_torch.io.pipeline import track_stream, track_stream_batched
     from pvot_torch.tracker.state import init_state
 
-    for flag in args.not_ported:
-        print(f"{flag}: {_NOT_PORTED[flag]} is not ported to pvot_torch yet", file=sys.stderr)
-        return 2
-    if not args.record and not args.no_display and os.environ.get("DISPLAY"):
-        print("the live display window is not ported to pvot_torch yet (ROADMAP A11): "
-              "pass --no-display or --record", file=sys.stderr)
-        return 2
     config = _config_from_args(args)
     source = FrameSource(args)
+    host = args.mode == "host"
     if args.resume:
         from pvot_torch.utils.checkpoint import load_state
 
-        state = load_state(args.resume, device=args.device)
+        state = load_state(args.resume, device="cpu" if host else args.device)
         roi = tuple(int(v) for v in (state.bbox_x, state.bbox_y, state.bbox_w, state.bbox_h))
         track_from = 0  # frame 0 is tracked, not a template source
-        template_frame = source.nth_frame(0)
+        template_frame = _nth_frame_or_exit(source, 0)
+        templ = state.template.cpu().numpy()
     else:
         start, roi, template_frame = _select_roi(args, source)
         track_from = start + 1
         x, y, w, h = roi
         templ = gray_u8_to_f32(bgr_to_gray_u8(template_frame))[y : y + h, x : x + w]
-        state = init_state(templ, roi, device=args.device)
+        # --host stays device-free: its state is numpy (pvot/cli/main.py:419-425).
+        state = None if host else init_state(templ, roi, device=args.device)
 
     suffix = ""
     if args.mode == "batch":
@@ -286,7 +389,11 @@ def run_tracking(args) -> int:
     t_start = time.perf_counter()
     frame_iter = source.frames(track_from, limit)
     chunk_timings: list = []
-    if args.mode == "batch":
+    if host:
+        lost, useg = (0, False) if state is None else (int(state.lost_count),
+                                                        bool(state.use_global))
+        final, out = _track_host(frame_iter, templ, roi, lost, useg, config, chunk_timings)
+    elif args.mode == "batch":
         final, out = track_stream_batched(
             frame_iter, state, source.shape, config, batch_size=args.batch_size,
             strategy=args.strategy, backend=args.engine, timings=chunk_timings)
@@ -299,18 +406,9 @@ def run_tracking(args) -> int:
     total_frames = n_tracked + 1  # + the template frame, like main.cpp:356
     avg_fps = total_frames / elapsed if elapsed > 0 else 0.0
 
-    if args.record:
-        from pvot_torch.io.video import VideoWriter
-
-        fh, fw = source.shape
-        with VideoWriter(output_path, source.fps, (fw, fh)) as writer:
-            first = template_frame.copy()
-            _draw(first, roi)
-            writer.write(first)
-            frame_fps = per_frame_fps(chunk_timings, n_tracked, avg_fps)
-            for i, frame in enumerate(source.frames(track_from, n_tracked)):
-                _draw(frame, out.bbox[i], frame_fps[i])
-                writer.write(frame)
+    if args.record or (not args.no_display and os.environ.get("DISPLAY")):
+        _replay(source, track_from, out.bbox, per_frame_fps(chunk_timings, n_tracked, avg_fps),
+                template_frame, roi, output_path)
 
     if args.trajectory_out:
         with open(args.trajectory_out, "w") as f:

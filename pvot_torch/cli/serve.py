@@ -3,7 +3,10 @@ concurrently on one card (the port of pvot/cli/serve.py).
 
 Drives pvot_torch.io.serving.serve_streams: one decode thread per stream,
 every chunk of every stream through the multi-stream CUDA kernel, global
-search on the card.  Headless: ROIs come from --roi, one shared by all
+search on the card.  A geometry outside the kernel's envelope (a search span
+over 512, a template side over 256) serves on the per-frame engine that
+--scan-backend names (default pallas_shear: the CUDA engine, K4 and K5), as
+pvot-serve does.  Headless: ROIs come from --roi, one shared by all
 streams or one per stream, or default to each synthetic stream's known
 target.  Homogeneous inputs (one frame size, one ROI size) serve through the
 stacked layout (pvot_torch.parallel.multi.init_multi_state); mixed frame or
@@ -16,15 +19,16 @@ over one stream resumes it.
 --fast serves at the kernels' bf16 score tier of --score-passes (3 unless
 given), as pvot-serve does; --score-passes without --fast exits with code 2
 (pvot-serve ignores it there).  What the JAX front end has and the port not
-yet exits with code 2 and names its ROADMAP item: --devices (A12),
---scan-backend (A15).  Video files need OpenCV, which the card's machine does
-not have: there, serve --synthetic streams.
+yet exits with code 2 and names its ROADMAP item: --devices (A12).  Video
+files need OpenCV, which the card's machine does not have: there, serve
+--synthetic streams.
 
 Examples:
   pvot-torch-serve cam0.mp4 cam1.mp4 cam2.mp4 --roi 600,320,80,80
   pvot-torch-serve --synthetic 1280x720x300 --streams 8
   pvot-torch-serve --synthetic 1280x720x300 --streams 8 --fast --score-passes 1
   pvot-torch-serve --synthetic 1280x720x300 --streams 1 --roi 600,320,80,80 --roi 100,90,64,48
+  pvot-torch-serve --synthetic 1280x720x300 --streams 2 --search-radius 300 --scan-backend shared
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ from typing import List, Optional
 
 import numpy as np
 
+from pvot_torch.ops.backends import MODE_TO_BACKEND
+
 # Options of pvot-serve that the port does not have yet, and their ROADMAP item.
 _NOT_PORTED = {
     "--devices": "serving across cards (ROADMAP A12)",
-    "--scan-backend": "serving over the scan engines (ROADMAP A15)",
 }
 
 
@@ -79,6 +84,11 @@ def parse_args(argv: List[str]):
         "--score-passes", type=int, default=None, choices=(1, 2, 3),
         help="bf16 passes of the --fast tier: 3 = hi/lo (default), 2 and 1 trade "
              "score precision for speed; needs --fast",
+    )
+    p.add_argument(
+        "--scan-backend", default="pallas_shear", choices=sorted(MODE_TO_BACKEND),
+        help="per-frame engine for geometries outside the kernel's envelope "
+             "(pvot_torch.ops.backends names)",
     )
     p.add_argument("--search-radius", type=int, default=None)
     p.add_argument("--max-frames", type=int, default=0)
@@ -137,6 +147,12 @@ def _tier(args) -> dict:
     from pvot_torch.ops.ncc_reference import cli_tier
 
     return cli_tier(args.fast, args.score_passes)
+
+
+def _serve_kw(args) -> dict:
+    """The keywords every serving entry point takes from the command line."""
+    return dict(scan_backend=args.scan_backend, chunk_size=args.chunk_size,
+                pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args))
 
 
 def _config(args):
@@ -333,8 +349,7 @@ def _run_objects(args, feed, states, frame_shape, closers) -> int:
     t0 = time.perf_counter()
     try:
         final, out = serve_objects(
-            feed, states, frame_shape, _config(args), chunk_size=args.chunk_size,
-            pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args),
+            feed, states, frame_shape, _config(args), **_serve_kw(args),
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if the stream raises mid-serve
@@ -380,8 +395,7 @@ def _run_serving(args, feeds, states, frame_shape, closers) -> int:
     t0 = time.perf_counter()
     try:
         final, outs = serve_streams(
-            feeds, states, frame_shape, _config(args), chunk_size=args.chunk_size,
-            pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args),
+            feeds, states, frame_shape, _config(args), **_serve_kw(args),
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if a stream raises mid-serve
@@ -408,8 +422,7 @@ def _run_serving_grouped(args, feeds, states_list, frame_shapes, closers) -> int
     t0 = time.perf_counter()
     try:
         finals, outs = serve_streams_grouped(
-            feeds, states_list, frame_shapes, _config(args), chunk_size=args.chunk_size,
-            pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args),
+            feeds, states_list, frame_shapes, _config(args), **_serve_kw(args),
         )
         elapsed = time.perf_counter() - t0
     finally:

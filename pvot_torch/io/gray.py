@@ -12,7 +12,10 @@ Two different roundings, and parity needs both:
 `bgr_to_gray_u8` is a copy of pvot/io/gray.py:33: OpenCV's fixed-point
 BGR2GRAY, through cv2 where it is installed (imported at first use: the
 card's machine has no OpenCV) and the same 15-bit formula in numpy
-otherwise.
+otherwise; `to_gray` chains it with the host scale.  `device_gray_scale` and
+`device_bgr_to_gray_f32` are JAX's on-device conversions, on the tensor's own
+device or the one named (numpy input: the current CUDA device unless the
+caller names another, as every entry point of the port).
 """
 
 from __future__ import annotations
@@ -68,3 +71,39 @@ def ensure_gray_f32(img: torch.Tensor) -> torch.Tensor:
     if img.dtype == torch.uint8:
         return img.to(torch.float32) * U8_SCALE
     return img.to(torch.float32)
+
+
+def to_gray(frame_bgr: np.ndarray) -> np.ndarray:
+    """The reference's `to_gray` (tracker_ghc/include/utils.hpp:4-13): uint8
+    BGR -> float32 gray in [0, 1], the fixed-point gray then the 1/255 scale
+    (pvot/io/gray.py:55)."""
+    return gray_u8_to_f32(bgr_to_gray_u8(frame_bgr))
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """x as a tensor on `device`; by default a tensor stays where it is and
+    numpy goes to the current CUDA device (tracker.state.default_device)."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x
+    from pvot_torch.tracker.state import default_device
+
+    return torch.as_tensor(x, device=default_device(device))
+
+
+def device_gray_scale(gray_u8, device=None) -> torch.Tensor:
+    """uint8 gray -> float32 * float32(1/255) on the device
+    (pvot/io/gray.py:71)."""
+    return _on_device(gray_u8, device).to(torch.float32) * U8_SCALE
+
+
+def device_bgr_to_gray_f32(frame_bgr_u8, device=None) -> torch.Tensor:
+    """uint8 BGR (H, W, 3) -> float32 gray / 255 on the device
+    (pvot/io/gray.py:94): the float weights 0.114 B + 0.587 G + 0.299 R as
+    one float32 product (no TF32), within 1/255 of the fixed-point host
+    path."""
+    from pvot_torch.ops.ncc_reference import full_f32
+
+    f = _on_device(frame_bgr_u8, device).to(torch.float32)
+    w = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32, device=f.device)
+    with full_f32(f.device):
+        return (f @ w) * U8_SCALE

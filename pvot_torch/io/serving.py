@@ -11,8 +11,8 @@ live stream (the port of pvot/io/serving.py `serve_streams`,
            side CUDA stream and ends in an event that the compute stream
            waits on
   compute  every chunk of every stream is one mega_track_chunk_multi call
-           (2C kernel launches for all S streams), global search included;
-           serve_objects: every chunk of the one stream is one
+           (one persistent launch for all S streams), global search
+           included; serve_objects: every chunk of the one stream is one
            mega_track_chunk_objects call for all K objects
   records  come back with a non-blocking copy into pinned host memory and
            are read `pipeline_depth` chunks later; a staging slot (its host
@@ -26,7 +26,22 @@ Heterogeneous inputs (mixed frame sizes or template sizes) serve through
 serve_streams_grouped: one serve_streams call per geometry group, the groups
 in host threads of their own, each on its own CUDA streams.
 
-On the CPU the same loop runs the kernel's plain version, with plain host
+The scan engines.  backend != "mega" serves on that per-frame engine, and
+backend="mega" serves there on `scan_backend` when the geometry lies outside
+the JAX mega envelope (MegaGeometry.supported: a span over 512, a template
+side over 256, or a map smaller than the span), as pvot/io/serving.py:187-214
+routes it; the route is a test of the geometry, never a fallback on error.
+Each lockstep chunk then runs the lockstep multi-lane step
+(pvot_torch.parallel.multi.make_multi_stream_step, strategy "fused"; on the
+CUDA engine one K5 launch a frame step for every lane, and one K4 launch on a
+step where a lane searches globally or the span is over 128) under the
+per-stream validity mask (make_stream_masked_scan_fn), so an ended stream's
+padding frames leave its state as it was; serve_objects runs
+parallel.multi.objects_step (the bucketed step for templates of mixed
+sizes), as track_video_multi does.  The step reads the
+device once a frame, so this path is bound by the host, not the card.
+
+On the CPU the same loops run the kernels' plain versions, with plain host
 buffers and no streams.
 """
 
@@ -41,9 +56,14 @@ import torch
 
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.pipeline import FramePipeline
+from pvot_torch.ops.backends import MODE_TO_BACKEND
 from pvot_torch.ops.ncc_mega import N_LANES, MegaGeometry
 from pvot_torch.ops.ncc_reference import score_tier
-from pvot_torch.parallel.multi import num_streams, stack_states, unstack_state
+from pvot_torch.parallel.multi import (
+    lane_records_to_output, make_multi_stream_step, make_stream_masked_scan_fn,
+    multi_carry_from_state, num_streams, objects_step, stack_states, state_from_multi_carry,
+    unstack_state,
+)
 from pvot_torch.tracker.mega import (
     _rows_to_output, bucket_extents, mega_chunk_step_multi, mega_chunk_step_objects,
 )
@@ -79,17 +99,17 @@ class _StreamFeed:
         self.pipe.close()
 
 
-def _check_options(backend: str, highest: bool, score_passes: int, devices) -> None:
+def _check_options(backend: str, scan_backend: str, highest: bool, score_passes: int,
+                   devices) -> None:
     """The score tier must be one the kernels have (score_passes 1, 2 or 3,
-    checked even when highest=True, as in JAX); the JAX package's serving
-    options that the port does not have yet raise, naming their ROADMAP
-    item; none is ignored."""
+    checked even when highest=True, as in JAX), the backend "mega" or an
+    engine the registry knows, and the scan engine one the registry knows;
+    several devices raise, naming their ROADMAP item."""
     score_tier(highest, score_passes)
-    if backend != "mega":
-        raise NotImplementedError(
-            f"backend={backend!r}: the port serves on the mega kernel only; serving "
-            "over the scan engines is not ported yet (ROADMAP A15)"
-        )
+    if backend != "mega" and backend not in MODE_TO_BACKEND:
+        raise ValueError(f"unknown backend: {backend!r}")
+    if scan_backend not in MODE_TO_BACKEND:
+        raise ValueError(f"unknown scan backend: {scan_backend!r}")
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             f"{len(devices)} devices: serving across cards is not ported yet (ROADMAP A12)"
@@ -111,6 +131,7 @@ def serve_streams(
     frame_shape: Tuple[int, int],
     config: Optional[TrackerConfig] = None,
     backend: str = "mega",
+    scan_backend: str = "pallas_shear",
     chunk_size: int = 32,
     timings: Optional[list] = None,
     highest: bool = True,
@@ -129,15 +150,19 @@ def serve_streams(
     Returns (final stacked TrackerState on that device, list of S host
     StepOutputs, one per stream, each with that stream's own frame count).
     timings, when given a list, receives one (frames_committed, seconds) pair
-    per lockstep chunk.  pipeline_depth is how many chunks may be in flight
-    before the oldest one's records are read (1 = synchronous).  highest=False
-    scores at `score_passes` bf16 passes (pvot/io/serving.py:94-104, the
-    kernels' tiers); each stream's records are then track_video_mega's at
-    that tier.
+    per lockstep chunk.
 
-    The port has the mega backend on one card: another backend or several
-    devices raise (ROADMAP A15, A12)."""
-    _check_options(backend, highest, score_passes, devices)
+    backend="mega" serves every chunk through the multi-stream kernel K2
+    inside the JAX mega envelope, and on `scan_backend` outside it; any other
+    backend names the per-frame engine to serve on (module docstring).  On
+    the kernel, pipeline_depth is how many chunks may be in flight before the
+    oldest one's records are read (1 = synchronous), and highest=False scores
+    at `score_passes` bf16 passes (pvot/io/serving.py:94-104, the kernels'
+    tiers); each stream's records are then track_video_mega's at that tier.
+    The scan engines take neither: each engine has its own tier.
+
+    Several devices raise (ROADMAP A12)."""
+    _check_options(backend, scan_backend, highest, score_passes, devices)
     config = config or TrackerConfig()
     n = num_streams(states)
     if len(frame_iters) != n:
@@ -145,13 +170,21 @@ def serve_streams(
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     device = torch.device(devices[0]) if devices else states.template.device
-    MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(n)
+    frame_shape = tuple(frame_shape)
+    templ_shape = tuple(states.template.shape[-2:])
+    if backend == "mega":
+        g = MegaGeometry(frame_shape, templ_shape, config)
+        if g.supported():
+            g.check(n)
 
-    def step(frames, st, n_real):
-        return mega_chunk_step_multi(frames, st, n_real, config, highest, score_passes)
+            def step(frames, st, n_real):
+                return mega_chunk_step_multi(frames, st, n_real, config, highest, score_passes)
 
-    return _serve_mega(frame_iters, states, tuple(frame_shape), np.arange(n), step,
-                       chunk_size, timings, max(1, pipeline_depth), device)
+            return _serve_mega(frame_iters, states, frame_shape, np.arange(n), step,
+                               chunk_size, timings, max(1, pipeline_depth), device)
+        backend = scan_backend
+    return _serve_streams_scan(frame_iters, states, frame_shape, config, backend, chunk_size,
+                               timings, device)
 
 
 def serve_objects(
@@ -160,6 +193,7 @@ def serve_objects(
     frame_shape: Tuple[int, int],
     config: Optional[TrackerConfig] = None,
     backend: str = "mega",
+    scan_backend: str = "pallas_shear",
     chunk_size: int = 32,
     timings: Optional[list] = None,
     highest: bool = True,
@@ -179,24 +213,96 @@ def serve_objects(
 
     Returns (final stacked TrackerState on that device, host StepOutput with
     the (F, K) leading layout, F = 0 included).  timings, when given a list,
-    receives one (frames, seconds) pair per chunk.  The score tier and the
-    options the port does not have yet are as in serve_streams."""
-    _check_options(backend, highest, score_passes, devices)
+    receives one (frames, seconds) pair per chunk.  The backends, the route
+    out of the envelope (on the bucket's geometry, which binds JAX's
+    `supported` too), the score tier and the devices are as in
+    serve_streams; mixed template sizes serve on the bucketed torch-ops
+    engine there, whatever the scan engine, as in JAX."""
+    _check_options(backend, scan_backend, highest, score_passes, devices)
     config = config or TrackerConfig()
     k = num_streams(states)
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     device = torch.device(devices[0]) if devices else states.template.device
-    extents = bucket_extents(states)
-    MegaGeometry(frame_shape, tuple(states.template.shape[-2:]), config).check(k)
+    frame_shape = tuple(frame_shape)
+    templ_shape = tuple(states.template.shape[-2:])
+    if backend == "mega":
+        g = MegaGeometry(frame_shape, templ_shape, config)
+        if g.supported():
+            g.check(k)
+            extents = bucket_extents(states)
 
-    def step(frames, st, n_real):
-        return mega_chunk_step_objects(frames[0], st, int(n_real[0]), config, extents, highest,
-                                       score_passes)
+            def step(frames, st, n_real):
+                return mega_chunk_step_objects(frames[0], st, int(n_real[0]), config, extents,
+                                               highest, score_passes)
 
-    final, outs = _serve_mega([frame_iter], states, tuple(frame_shape), np.zeros(k, int), step,
-                              chunk_size, timings, max(1, pipeline_depth), device)
-    return final, StepOutput(*(np.stack(xs, axis=1) for xs in zip(*outs)))
+            final, outs = _serve_mega([frame_iter], states, frame_shape, np.zeros(k, int), step,
+                                      chunk_size, timings, max(1, pipeline_depth), device)
+            return final, StepOutput(*(np.stack(xs, axis=1) for xs in zip(*outs)))
+        backend = scan_backend
+    multi_step = objects_step(states, frame_shape, config, "fused", backend)
+    mc = multi_carry_from_state(states.to(device))
+    per_frame: list = []
+    mark = time.perf_counter()
+    for frames, n_real in _lockstep_chunks([frame_iter], frame_shape, chunk_size, device):
+        for frame in frames[0, : int(n_real[0])]:  # every lane shares the stream's frames
+            mc, recs = multi_step(mc, frame)
+            per_frame.append(recs)
+        mark = _time_chunk(timings, int(n_real[0]), mark)
+    return state_from_multi_carry(mc), lane_records_to_output(per_frame, k)
+
+
+def _time_chunk(timings: Optional[list], n: int, mark: float) -> float:
+    """Append (frames, seconds since `mark`) to `timings` when given; the new
+    mark."""
+    now = time.perf_counter()
+    if timings is not None:
+        timings.append((n, now - mark))
+    return now
+
+
+def _lockstep_chunks(frame_iters, frame_shape, chunk_size: int, device: torch.device):
+    """The scan engines' lockstep feed: (frames (N, chunk_size, H, W) uint8 on
+    `device`, n_real (N,)) a chunk until every one of the N streams has
+    ended; an ended stream holds its last frame with n_real 0 (_StreamFeed).
+    The decode threads run ahead of the step; the feeds close however the
+    loop ends."""
+    feeds: List[_StreamFeed] = []
+    host = np.empty((len(frame_iters), chunk_size, *frame_shape), np.uint8)
+    try:
+        feeds.extend(_StreamFeed(it, frame_shape, chunk_size) for it in frame_iters)
+        while True:
+            n_real = np.array([f.next_chunk(host[s]) for s, f in enumerate(feeds)], np.int32)
+            if not n_real.any():
+                return
+            yield torch.from_numpy(host).to(device, copy=True), n_real
+    finally:
+        for f in feeds:
+            f.close()
+
+
+def _serve_streams_scan(frame_iters, states, frame_shape, config, backend: str,
+                        chunk_size: int, timings: Optional[list], device: torch.device):
+    """pvot/io/serving.py:853 `_serve_streams_scan`: every lockstep chunk
+    through the multi-stream step of `backend` under the per-stream validity
+    mask, each stream's records cut to its own length.  A chunk runs up to
+    its longest stream's last frame: frames that no stream has would change
+    no state.  Returns (final stacked state on `device`, S host
+    StepOutputs)."""
+    scan = make_stream_masked_scan_fn(make_multi_stream_step(
+        frame_shape, tuple(states.template.shape[-2:]), config, "fused", backend))
+    st = states.to(device)
+    outs: List[list] = [[] for _ in frame_iters]
+    mark = time.perf_counter()
+    for frames, n_real in _lockstep_chunks(frame_iters, frame_shape, chunk_size, device):
+        c = int(n_real.max())
+        valid = np.arange(c)[:, None] < n_real[None, :]
+        st, out = scan(st, frames[:, :c].transpose(0, 1), valid)  # (c, S, H, W) frames
+        for s, n in enumerate(n_real.tolist()):
+            if n:
+                outs[s].append(StepOutput(*(v[:n, s] for v in out)))
+        mark = _time_chunk(timings, int(n_real.sum()), mark)
+    return st, [_concat_outputs(o) for o in outs]
 
 
 class _Slot:
@@ -255,10 +361,7 @@ def _serve_mega(frame_iters, states, frame_shape, lane_feed: np.ndarray, step,
         for lane, n in enumerate(slot.n_real[lane_feed].tolist()):
             if n:
                 outs[lane].append(_rows_to_output(host[lane, :n]))
-        now = time.perf_counter()
-        if timings is not None:
-            timings.append((int(slot.n_real.sum()), now - mark))
-        mark = now
+        mark = _time_chunk(timings, int(slot.n_real.sum()), mark)
 
     try:
         with on_compute:
@@ -305,6 +408,7 @@ def serve_streams_grouped(
     frame_shapes: Sequence[Tuple[int, int]],
     config: Optional[TrackerConfig] = None,
     backend: str = "mega",
+    scan_backend: str = "pallas_shear",
     chunk_size: int = 32,
     timings: Optional[list] = None,
     highest: bool = True,
@@ -324,11 +428,13 @@ def serve_streams_grouped(
 
     Returns (list of S final single-stream TrackerStates, list of S host
     StepOutputs) in input order.  timings, when given, receives each group's
-    per-chunk (frames, seconds) pairs, group after group.  The score tier
-    is every group's, as in serve_streams."""
+    per-chunk (frames, seconds) pairs, group after group.  The backends and
+    the score tier are every group's, as in serve_streams; each group routes
+    on its own geometry, so a group outside the mega envelope serves on
+    `scan_backend` while the others serve on the kernel."""
     from concurrent.futures import ThreadPoolExecutor
 
-    _check_options(backend, highest, score_passes, devices)
+    _check_options(backend, scan_backend, highest, score_passes, devices)
     config = config or TrackerConfig()
     n = len(frame_iters)
     if len(states_list) != n or len(frame_shapes) != n:
@@ -348,8 +454,9 @@ def serve_streams_grouped(
             [frame_iters[i] for i in idxs],
             stack_states([states_list[i] for i in idxs],
                          devices[0] if devices else states_list[idxs[0]].template.device),
-            key[0], config, chunk_size=chunk_size, timings=group_timings, highest=highest,
-            pipeline_depth=pipeline_depth, devices=devices, score_passes=score_passes,
+            key[0], config, backend=backend, scan_backend=scan_backend, chunk_size=chunk_size,
+            timings=group_timings, highest=highest, pipeline_depth=pipeline_depth,
+            devices=devices, score_passes=score_passes,
         )
         return final, outs, group_timings
 

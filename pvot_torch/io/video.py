@@ -1,5 +1,6 @@
 """Host-side video decode and encode: copies of pvot/io/video.py
-`VideoReader` and `VideoWriter`.
+`VideoReader`, `VideoWriter` and the raw-frame cache (`load_cached_video`,
+`save_cached_video`, numpy only).
 
 OpenCV is imported when a reader or writer opens, not when this module is
 imported: the card's machine has no OpenCV, so it serves synthetic streams
@@ -102,3 +103,47 @@ class VideoWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def load_cached_video(cache_path: str) -> Optional[np.ndarray]:
+    """Raw-frame cache loader in the reference CPU baseline's format
+    (baseline_cpu/cpub.cpp loadCachedVideo: an int32 width, height, type
+    header, then raw frames).  Returns uint8 (N, H, W, C), or None when the
+    file is absent or corrupt (pvot/io/video.py:113)."""
+    import os
+    import struct
+
+    if not os.path.exists(cache_path):
+        return None
+    try:
+        with open(cache_path, "rb") as f:
+            header = f.read(12)
+            if len(header) < 12:
+                return None
+            w, h, cv_type = struct.unpack("<iii", header)
+            channels = (cv_type >> 3) + 1  # CV_MAKETYPE channel encoding
+            frame_bytes = w * h * channels
+            frames = []
+            while True:
+                buf = f.read(frame_bytes)
+                if len(buf) < frame_bytes:
+                    break
+                frames.append(np.frombuffer(buf, np.uint8).reshape(h, w, channels).copy())
+        return np.stack(frames) if frames else None
+    except Exception:
+        return None
+
+
+def save_cached_video(cache_path: str, frames: np.ndarray) -> None:
+    """Writer of the raw-frame cache format (load_cached_video;
+    pvot/io/video.py:143)."""
+    import struct
+
+    if frames.ndim == 3:
+        frames = frames[..., None]
+    n, h, w, c = frames.shape
+    cv_type = (c - 1) << 3  # CV_8UC{c}
+    with open(cache_path, "wb") as f:
+        f.write(struct.pack("<iii", w, h, cv_type))
+        for i in range(n):
+            f.write(frames[i].astype(np.uint8).tobytes())

@@ -135,6 +135,18 @@ class MegaGeometry:
     def smem_bytes(self, table_lanes: int = 1) -> int:
         return score_smem_bytes(self.stage_rows(table_lanes), self.tw, table_lanes)
 
+    def supported(self) -> bool:
+        """The JAX mega envelope as a predicate of the geometry alone
+        (pvot/ops/ncc_mega.py:148-167): spans and template sides within the
+        caps, and a map at least as large as the span.  The serving entry
+        points route a geometry outside it to their scan engine.  In the
+        bucketed mode the bucket binds, as JAX's `out_*_b` do.  The port's
+        shared memory for many lanes is not part of it: `check` raises on
+        that."""
+        return (self.span_x <= MAX_SPAN and self.span_y <= MAX_SPAN
+                and self.th <= MAX_TEMPLATE and self.tw <= MAX_TEMPLATE
+                and self.out_h >= self.span_y and self.out_w >= self.span_x)
+
     def check(self, table_lanes: int = 1) -> "MegaGeometry":
         if self.out_h < 1 or self.out_w < 1:
             raise ValueError(

@@ -1,4 +1,6 @@
-"""Plain PyTorch NCC: the port's correctness oracle (pvot/ops/ncc_reference.py).
+"""Plain PyTorch NCC: the port's correctness oracle (pvot/ops/ncc_reference.py),
+with its cv::matchTemplate variant (`ncc_map_opencv`, the reference's --cpu
+mode) and its batched maps (`ncc_map_batched`).
 
 Per output position, with N = th * tw and the reference's epsilons:
 
@@ -194,3 +196,38 @@ def ncc_map_reference(
     _, std = window_moments(frame, (th, tw))
     cov = corr2_valid(frame, templ - t_mean)
     return cov / ((std + 1e-6) * (t_std + 1e-6) * n)
+
+
+def ncc_map_opencv(frame: torch.Tensor, templ: torch.Tensor) -> torch.Tensor:
+    """cv::matchTemplate(TM_CCOEFF_NORMED) semantics, the reference's --cpu
+    mode (tracker_ghc/src/main.cpp:158; pvot/ops/ncc_reference.py:124):
+
+        R = sum(T' I') / sqrt(sum(T'^2) sum(I'^2)),  T' = T - mean(T),
+                                                     I' = I_win - mean(I_win)
+
+    with a plain 1e-12 guard on the denominator, as JAX has it.  Dtypes as
+    in `ncc_map_reference`."""
+    if frame.dtype != torch.float64:
+        frame = ensure_gray_f32(frame)
+        templ = templ.to(torch.float32)
+    else:
+        templ = templ.to(torch.float64)
+    n = float(templ.numel())
+    t_centered = templ - templ.mean()
+    t_ssq = (t_centered * t_centered).sum()
+    ones = torch.ones(templ.shape, dtype=frame.dtype, device=frame.device)
+    sums = corr2_valid(frame, ones)
+    ssq = corr2_valid(frame * frame, ones)
+    win_ssq = torch.clamp(ssq - sums * sums / n, min=0.0)
+    numer = corr2_valid(frame, t_centered)
+    denom = torch.sqrt(t_ssq * win_ssq)
+    return numer / torch.clamp(denom, min=1e-12)
+
+
+def ncc_map_batched(frames: torch.Tensor, templ: torch.Tensor) -> torch.Tensor:
+    """NCC maps of frames (B, H, W) against one template snapshot -> (B,
+    outH, outW) (pvot/ops/ncc_reference.py:152, the analog of the reference's
+    nccKernelNaiveBatched): the template's stats once, then every frame's
+    map."""
+    t_mean, t_std = template_stats(templ)
+    return torch.stack([ncc_map_reference(f, templ, t_mean, t_std) for f in frames])

@@ -4,7 +4,7 @@ multi-object kernels (pvot/parallel/multi.py:29 `init_multi_state`, :262
 `init_multi_state_bucketed` for objects whose templates differ in size), and
 the steps and drivers of pvot/parallel/multi.py on the per-frame engines
 (`make_multi_step`, `make_multi_stream_step`, `make_stream_masked_scan_fn`,
-`track_video_multi`, `make_multi_step_bucketed`).
+`objects_step`, `track_video_multi`, `make_multi_step_bucketed`).
 
 JAX stacks with a vmap-style tree map; here a TrackerState of tensors whose
 fields carry the S axis first, all on one device: the one named, else the
@@ -24,6 +24,7 @@ from pvot_torch.ops import search as search_ops
 from pvot_torch.ops.backends import cuda_region_passes
 from pvot_torch.ops.ncc_pallas import ncc_map_lanes, region_argmax_lanes
 from pvot_torch.ops.ncc_reference import template_stats, template_stats_bucketed
+from pvot_torch.tracker.mega import bucket_extents
 from pvot_torch.tracker.scan import records_to_output
 from pvot_torch.tracker.state import (
     StepOutput, TrackerState, default_device, init_state, is_bbox_outside_frame,
@@ -338,6 +339,24 @@ def lane_records_to_output(per_frame: List[list], k: int) -> StepOutput:
                       out.used_global.reshape(f, k), out.updated.reshape(f, k))
 
 
+def objects_step(
+    states: TrackerState,
+    frame_shape: Tuple[int, int],
+    config: TrackerConfig = TrackerConfig(),
+    strategy: str = "fused",
+    backend: str = "xla",
+):
+    """The multi-object step for a stacked state: make_multi_step_bucketed
+    when the templates are of mixed sizes in a shared bucket
+    (pvot_torch.tracker.mega.bucket_extents tells them apart), where
+    `strategy` and `backend` select nothing, as in JAX
+    (pvot/parallel/multi.py:212); else make_multi_step on them."""
+    templ_shape = tuple(states.template.shape[-2:])
+    if bucket_extents(states) is not None:
+        return make_multi_step_bucketed(frame_shape, templ_shape, config)
+    return make_multi_step(frame_shape, templ_shape, config, strategy, backend)
+
+
 def track_video_multi(
     frames,
     states: TrackerState,
@@ -348,22 +367,15 @@ def track_video_multi(
     device=None,
 ) -> Tuple[TrackerState, StepOutput]:
     """Track K objects through one gray video (F, H, W) on `device` (default:
-    the states' device); outputs have the (F, K) leading layout.  Templates
-    of mixed sizes (init_multi_state_bucketed states, told apart by bbox
-    extents that differ from the bucket) run the bucketed step, which has its
-    own torch-ops engine; `strategy` and `backend` then select nothing, as in
-    JAX (pvot/parallel/multi.py:212)."""
+    the states' device); outputs have the (F, K) leading layout.  The step
+    is `objects_step`'s: templates of mixed sizes (init_multi_state_bucketed
+    states) run the bucketed step on its own torch-ops engine."""
     from pvot_torch.tracker.scan import _check_frames, _chunks
 
     frames = _check_frames(frames)
     device = torch.device(device) if device is not None else states.template.device
-    f, h, w = frames.shape
+    multi_step = objects_step(states, frames.shape[1:], config, strategy, backend)
     mc = multi_carry_from_state(states.to(device))
-    th, tw = mc.template.shape[-2:]
-    if any((bh, bw) != (th, tw) for _, _, bw, bh in mc.bbox):
-        multi_step = make_multi_step_bucketed((h, w), (th, tw), config)
-    else:
-        multi_step = make_multi_step((h, w), (th, tw), config, strategy, backend)
     per_frame = []
     for chunk in _chunks(frames, chunk_size, device):
         for frame in chunk:

@@ -5,8 +5,8 @@ Copied, not imported (importing `pvot` imports JAX).  The C++ source is
 pvot/runtime/libpvot.cpp, byte for byte; the library builds with make/g++ on
 first use into build/pvot_torch/ at the root of the checkout, not into the
 source tree.  Every entry point has a pure-numpy fallback, so the port works
-without a toolchain.  tests/test_torch_serving.py holds the copies equal to
-the originals.
+without a toolchain.  tests/test_torch_serving.py and tests/test_torch_host.py
+hold the copies equal to the originals.
 """
 
 from __future__ import annotations
@@ -68,6 +68,11 @@ def load() -> Optional[ctypes.CDLL]:
         lib.pvot_gray_u8_to_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ]
+        lib.pvot_ncc_match_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
         lib.pvot_ring_create.argtypes = [ctypes.c_int64, ctypes.c_int64]
         lib.pvot_ring_create.restype = ctypes.c_void_p
         lib.pvot_ring_destroy.argtypes = [ctypes.c_void_p]
@@ -120,6 +125,81 @@ def gray_u8_to_f32(gray: np.ndarray) -> np.ndarray:
         return fallback(gray)
     out = np.empty(gray.shape, np.float32)
     lib.pvot_gray_u8_to_f32(gray.ctypes.data, out.ctypes.data, gray.size)
+    return out
+
+
+def template_stats_host(templ: np.ndarray):
+    """(mean, population std + 1e-6) in double — the reference host wrapper's
+    cv::meanStdDev semantics (baseline_kernel.cu:263-266)."""
+    t = np.asarray(templ, np.float64)
+    mean = float(t.mean())
+    std = float(np.sqrt(max(t.var(), 0.0))) + 1e-6
+    return mean, std
+
+
+def _ncc_numpy(frame, templ, t_mean, t_std_in):
+    """Pure-numpy fallback for pvot_ncc_match_f32 (same math, same double
+    accumulation; strip-wise to bound the sliding-window buffer)."""
+    fh, fw = frame.shape
+    th, tw = templ.shape
+    oh, ow = fh - th + 1, fw - tw + 1
+    n = float(th * tw)
+    f64 = frame.astype(np.float64)
+    t_c = (templ - np.float32(t_mean)).astype(np.float64)
+    sum_tc = t_c.sum()
+    sat = np.zeros((fh + 1, fw + 1))
+    satsq = np.zeros((fh + 1, fw + 1))
+    np.cumsum(np.cumsum(f64, 0), 1, out=sat[1:, 1:])
+    np.cumsum(np.cumsum(f64 * f64, 0), 1, out=satsq[1:, 1:])
+    sums = sat[th:, tw:] - sat[th:, :-tw] - sat[:-th, tw:] + sat[:-th, :-tw]
+    ssq = (
+        satsq[th:, tw:] - satsq[th:, :-tw] - satsq[:-th, tw:] + satsq[:-th, :-tw]
+    )
+    mu = sums / n
+    sigma = np.sqrt(np.maximum(ssq / n - mu * mu, 1e-6))
+    out = np.empty((oh, ow), np.float64)
+    strip = max(1, (4 << 20) // max(1, ow * th * tw * 8))
+    win = np.lib.stride_tricks.sliding_window_view(f64, (th, tw))
+    for y0 in range(0, oh, strip):
+        y1 = min(oh, y0 + strip)
+        out[y0:y1] = np.einsum(
+            "ywrc,rc->yw", win[y0:y1, :ow], t_c, optimize=True
+        )
+    cov = out - mu * sum_tc
+    return (cov / ((sigma + 1e-6) * (float(t_std_in) + 1e-6) * n)).astype(
+        np.float32
+    )
+
+
+def ncc_match(frame: np.ndarray, templ: np.ndarray,
+              t_mean: Optional[float] = None,
+              t_std: Optional[float] = None) -> np.ndarray:
+    """Host NCC map with the reference's exact epsilon structure — the
+    native analog of the reference CPU op (tracker/src/ncc_cpu.cpp; kernel
+    math baseline_kernel.cu:17-46).
+
+    frame (H, W) f32 in [0,1], templ (th, tw) f32 -> valid-mode map
+    (H-th+1, W-tw+1) f32.  t_std, when given, must already include the
+    host-side +1e-6 (template_stats semantics).  Runs the C++ engine when
+    built (OpenMP + integral images), else the numpy fallback: the host
+    engine's own two implementations, never a stand-in for a device kernel.
+    """
+    frame = np.ascontiguousarray(frame, np.float32)
+    templ = np.ascontiguousarray(templ, np.float32)
+    if t_mean is None or t_std is None:
+        t_mean, t_std = template_stats_host(templ)
+    fh, fw = frame.shape
+    th, tw = templ.shape
+    if th > fh or tw > fw:
+        raise ValueError(f"template {templ.shape} larger than frame {frame.shape}")
+    lib = load()
+    if lib is None:
+        return _ncc_numpy(frame, templ, t_mean, t_std)
+    out = np.empty((fh - th + 1, fw - tw + 1), np.float32)
+    lib.pvot_ncc_match_f32(
+        frame.ctypes.data, fh, fw, templ.ctypes.data, th, tw,
+        ctypes.c_float(t_mean), ctypes.c_float(t_std), out.ctypes.data,
+    )
     return out
 
 

@@ -1,7 +1,7 @@
 """Chunked tracking loops over the chunk kernels (pvot/tracker/mega.py
 `track_video_mega`, `track_streams_mega` and `track_objects_mega` in their
-in-kernel global-search mode, `mega_video_scan`, `mega_chunk_step_multi`,
-`mega_chunk_step_objects`).
+in-kernel global-search mode, `mega_video_scan`, `mega_chunk_step`,
+`mega_chunk_step_multi`, `mega_chunk_step_objects`).
 
 Each chunk is one `mega_track_chunk` call, one `mega_track_chunk_multi` call
 for S streams, or one `mega_track_chunk_objects` call for K objects over one
@@ -110,16 +110,34 @@ def track_video_mega(
     all_rows = []
     for start in range(0, frames.shape[0], cs):
         chunk = frames[start : start + cs]
-        rows, tplout = mega_track_chunk(
-            chunk, torch.stack(list(cur.bbox)), cur.template, cur.t_mean,
-            cur.t_std, cur.lost_count, cur.use_global, chunk.shape[0], config,
-            highest, score_passes, batch,
-        )
-        cur = _state_from_chunk(rows, tplout)
+        rows, cur = mega_chunk_step(chunk, cur, chunk.shape[0], config, highest, score_passes,
+                                    batch)
         all_rows.append(rows)
     if not all_rows:
         return cur, _rows_to_output(np.zeros((0, 10), np.float32))
     return cur, _rows_to_output(host_read(torch.cat(all_rows)).numpy())
+
+
+def mega_chunk_step(
+    chunk: torch.Tensor,
+    state: TrackerState,
+    n_valid: int,
+    config: TrackerConfig,
+    highest: bool = True,
+    score_passes: int = 3,
+    batch: int = 1,
+) -> Tuple[torch.Tensor, TrackerState]:
+    """One chunk of one stream (pvot/tracker/mega.py:93, the step that
+    bench.py:329 drives): chunk (C, H, W) uint8 on the state's device, its
+    first n_valid frames tracked; tier and cadence as in track_video_mega.
+    One K1 launch.  Returns (rows (C, 10) on the device, the chunk-final
+    state).  JAX's `interpret` and `inkernel_global` have no counterpart
+    (global search is always in the kernel: ROADMAP R1, R2)."""
+    rows, tplout = mega_track_chunk(
+        chunk, torch.stack(list(state.bbox)), state.template, state.t_mean, state.t_std,
+        state.lost_count, state.use_global, n_valid, config, highest, score_passes, batch,
+    )
+    return rows, _state_from_chunk(rows, tplout)
 
 
 def mega_chunk_step_multi(

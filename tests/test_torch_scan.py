@@ -419,21 +419,3 @@ def test_cli_fast_modes_run(tmp_path, capsys, monkeypatch, flag):
     out = capsys.readouterr().out
     assert f"Tracking mode: {flag[2:]}" in out
     assert "Interactive tracking summary: frames=6" in out
-
-
-@pytest.mark.parametrize("args,item", [
-    (["--host"], "A11"),
-    ([], "A11"),  # no --roi: the JAX CLI opens its GUI selector
-])
-def test_cli_not_ported_exits_2(tmp_path, capsys, monkeypatch, args, item):
-    from pvot_torch.cli.main import main
-
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv("DISPLAY", raising=False)
-    roi = [] if not args else ["--roi", "10,10,16,16"]
-    try:
-        rc = main(["--synthetic", "160x120x4", "--device", "cpu", *roi, *args])
-    except SystemExit as e:
-        rc = e.code
-    assert rc == 2
-    assert item in capsys.readouterr().err

@@ -182,8 +182,7 @@ def test_stream_feed_holds_after_end(monkeypatch, use_native):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(backend="xla"), "A15"), (dict(highest=False, score_passes=4), "score_passes"),
-    (dict(devices=["cpu", "cpu"]), "A12"),
+    (dict(highest=False, score_passes=4), "score_passes"), (dict(devices=["cpu", "cpu"]), "A12"),
 ])
 def test_serving_options_not_ported_raise(streams, kwargs, item):
     """Options the port does not have raise naming their ROADMAP item; a score
@@ -265,7 +264,6 @@ def test_cli_synthetic_streams_write_trajectories(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (("--synthetic", "200x120x3", "--scan-backend", "xla"), "A15"),
     (("--synthetic", "200x120x3", "--score-passes", "1"), "needs --fast"),
     (("--synthetic", "200x120x3", "--devices", "2"), "A12"),
 ])

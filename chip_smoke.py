@@ -5,7 +5,10 @@ It needs one CUDA device and nvcc, imports nothing of JAX or the `pvot`
 package, and exits nonzero on any failure.  The chunk kernels K1-K3 make one
 persistent launch a chunk.  Phases, in order, none of them caught:
 
-  1. require a CUDA device; print the card's name and power limit;
+  1. require a CUDA device; print the card's name and power limit; require
+     the native host library (pvot_torch/runtime/libpvot.cpp, built by make,
+     with -fopenmp-simd where -fopenmp fails) to load, so that no serving
+     phase falls back to the Python frame ring or the numpy host NCC;
   2. build the CUDA sources (pvot_torch/csrc, one nvcc per source, at once)
      and print the build seconds of each source, the production kernels'
      registers, spills and score blocks per SM beside the parent tree's
@@ -201,7 +204,25 @@ persistent launch a chunk.  Phases, in order, none of them caught:
      mega_chunk_step, one K1 launch, its rows and final template held to
      K1's plain version on phase 8's chunk; (f)
      pvot-torch --host over 128 frames of phase 10's clip, no kernel, its
-     boxes phase 10's, and which host NCC ran;
+     boxes phase 10's, and which host NCC ran, its seconds beside those of
+     the numpy host NCC;
+ 34. (run before phase 33's line) the last modules: (a) the native
+     library's build (build_info; phase 1 fails without it, and each
+     serving phase prints its frame ring beside its frames/s) and
+     pvot-torch --host's seconds on it; (b) the flow baseline, track_video_flow on the card over the
+     bench clip's first 257 frames: every tensor of its state on the card,
+     frames/s beside the main path's, mean box error against the ground
+     truth, and its first 32 boxes equal to a CPU run of those frames; (c)
+     search-sharded tracking: 2 gloo processes sharing the card, mesh (data
+     1, search 2) and then (data 2, search 1), backend "pallas" (K4 on every
+     slab and strip), over phase 11's re-acquisition clip: boxes and
+     used_global equal to the unsharded track_video(backend="pallas"),
+     scores under the contract, each rank's K4 launches (one a frame for
+     its slabs, one more a frame where a stream searches globally) and no
+     K5, and K4 on the first slab and strip inputs of each rank held to
+     its plain version on them; (d) serve_streams over devices ["cuda:0", "cuda:0"] (two stream
+     groups on one card), phase 7's 8 streams, every stream equal to phase
+     7's one-device serve, its frames/s and ring;
  33. print the kernels' JSON line (each kernel's time beside its plain
      version's and its bound: the larger of its correlation FLOPs at the
      FP32 peak, or at the bf16 tensor-core peak times passes for a tier, and
@@ -1255,6 +1276,58 @@ def profiled(fn, kernel: str):
     return (sum(ms for _, ms in hits) / n if n else 0.0), by_kernel, wall
 
 
+def sharded_rank(rank: int, world: int, mesh_shape, backend: str) -> dict:
+    """Phase 34 (c) on one rank of a gloo world on cuda:0: phase 11's
+    re-acquisition clip (as many copies as the mesh has data ranks) through
+    track_video_sharded, the K4 and K5 counters reset just before and read
+    just after.  The first K4 call at each shape the path gives it (this
+    rank's slabs and strips) is kept, and after the counters are read K4 is
+    held on those inputs to its plain version, on the card as in phase 8
+    (on the CPU its 80x80 correlations in float64 take tens of GiB)."""
+    from pvot_torch.bench import state_at
+    from pvot_torch.config import TrackerConfig
+    from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_video
+    from pvot_torch.ops import _build
+    from pvot_torch.ops.ncc_mega import reset_launches
+    from pvot_torch.ops.ncc_pallas import (
+        ncc_map_lanes, ncc_map_lanes_reference, ncc_map_pallas, ncc_region_argmax_pallas,
+    )
+    from pvot_torch.parallel import sharded
+    from pvot_torch.parallel.multi import stack_states
+    from pvot_torch.parallel.sharded import make_mesh, track_video_sharded
+
+    calls = {}  # (rows, cols) -> the first K4 call's inputs at that shape
+
+    def keep_call(images, templates, t_mean, t_std, origins, out_shape):
+        calls.setdefault(tuple(out_shape), (images.clone(), templates.clone(), t_mean.clone(),
+                                            t_std.clone(), list(origins)))
+        return ncc_map_lanes(images, templates, t_mean, t_std, origins, out_shape)
+
+    sharded.ncc_map_lanes = keep_call
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.load_library()  # built by the parent process: this loads it
+    gspec = SyntheticSpec(width=1280, height=720, num_frames=49, target_w=80, target_h=80,
+                          seed=2, exit_and_reenter=True)
+    gframes = generate_gray_video(gspec)
+    data = mesh_shape[0]
+    mesh = make_mesh(mesh_shape)
+    states = stack_states([state_at(gspec, gframes, 0, dev)] * data, dev)
+    reset_launches(ncc_map_pallas, ncc_region_argmax_pallas)
+    _, out = track_video_sharded(np.stack([gframes[1:]] * data), states, mesh,
+                                 TrackerConfig(lost_frame_threshold=5), chunk_size=16,
+                                 backend=backend, device=dev)
+    got = {"out": out._asdict(), "K4": ncc_map_pallas.launches,
+           "K5": ncc_region_argmax_pallas.launches, "k4_err": {}}
+    for shape, (images, *args, origins) in calls.items():
+        card = ncc_map_lanes(images, *args, origins, shape)
+        plain = ncc_map_lanes_reference(images, *args, origins, shape)
+        got["k4_err"][f"{len(origins)}x{shape[0]}x{shape[1]}"] = float(
+            (card - plain).abs().max())
+    return got
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1274,6 +1347,14 @@ def main(argv=None) -> int:
 
     smi = gpu_identity()[0]
     print(f"gpu: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    from pvot_torch.runtime import native
+
+    native_build = native.build_info()
+    print(f"native host library: {json.dumps(native_build)}")
+    if not native_build["built"]:
+        raise AssertionError("the native host library (libpvot) did not build or load")
+    # Serving's feeds take libpvot's frame ring whenever the library loaded.
+    host_path = f"frame ring native (libpvot, {native_build['openmp']})"
 
     from pvot_torch.config import TrackerConfig
     from pvot_torch.io.gray import gray_u8_to_f32
@@ -1731,7 +1812,8 @@ def main(argv=None) -> int:
     print(f"serve_objects: 8 objects over {n_serve} frames in {serve_o_s:.3f} s: "
           f"{n_serve / serve_o_s:.1f} frames/s ({8 * n_serve / serve_o_s:.1f} object-frames/s); "
           f"device path (track_objects_mega, frames on the card) {dev_fps:.1f} frames/s; 0 px, "
-          f"equal to track_objects_mega; {k3_launches} K3 launches on {smi}")
+          f"equal to track_objects_mega; {k3_launches} K3 launches; "
+          f"{host_path}; on {smi}")
 
     # Phase 6 (run_bench zeroes K1's count again just before the main path's
     # checked run and reads it just after; nothing else runs in between).
@@ -1778,8 +1860,8 @@ def main(argv=None) -> int:
     print(f"serving: 8 streams ({min(lengths)}-{max(lengths)} frames, offsets {offsets}), "
           f"{total} frames in {serve_s:.3f} s: {total / serve_s:.1f} frames/s aggregate, "
           f"{[round(n / serve_s, 1) for n in lengths]} per stream; every stream 0 px off the "
-          f"ground truth and equal to track_video_mega alone; {serve_launches} K2 launches "
-          f"on {smi}")
+          f"ground truth and equal to track_video_mega alone; {serve_launches} K2 launches; "
+          f"{host_path}; on {smi}")
 
     # Phase 8: K4 and K5 against their plain versions.
     rng = np.random.default_rng(11)
@@ -2210,7 +2292,8 @@ def main(argv=None) -> int:
         compare_outputs(f"1-pass stream {s_}", served1[s_], alone)
     print(f"serving at 1 pass: 8 streams, {total} frames in {serve1_s:.3f} s: "
           f"{total / serve1_s:.1f} frames/s aggregate; every stream 0 px and equal to "
-          f"track_video_mega at 1 pass alone; {serve_launches} launches of the 1-pass K2 only")
+          f"track_video_mega at 1 pass alone; {serve_launches} launches of the 1-pass K2 only; "
+          f"{host_path}")
 
     # Phase 20: K4 and K5 at 3 passes against their plain versions; the
     # pallas_fast engine path, track_stream over the bench clip (0 px, the
@@ -2495,7 +2578,6 @@ def main(argv=None) -> int:
     # each drive with the counters reset just before and read just after.
     from pvot_torch.cli.serve import main as serve_main
     from pvot_torch.io.synthetic import generate_gray_frames
-    from pvot_torch.runtime import native
     from pvot_torch.tracker.mega import mega_chunk_step
 
     def lockstep_global_steps(outs, n_frames):
@@ -2529,7 +2611,8 @@ def main(argv=None) -> int:
           f"frames in {scan_s:.3f} s: serve_fps {scan_fps:.1f} against the mega path's "
           f"{mega_serve_fps:.1f} (phase 7); every stream 0 px and equal to its own "
           f"track_stream(shared); {scan_counts['K5']} K5 launches ({max(lengths)} lockstep "
-          f"frame steps), {scan_counts['K4']} K4 ({scan_glob} global steps), no K1-K3; on {smi}")
+          f"frame steps), {scan_counts['K4']} K4 ({scan_glob} global steps), no K1-K3; "
+          f"{host_path}; on {smi}")
     # (b) K = 4 objects on phase 13's clip, one from outside the frame.
     reset_counts()
     _, ob_served = serve_objects(iter(oclip[1:]), init_multi_state(uni, urois), oclip.shape[1:],
@@ -2566,7 +2649,8 @@ def main(argv=None) -> int:
         raise AssertionError("span 601: off the ground truth")
     print(f"out of the envelope: 2 streams at 1080p/80/r300 (span 601) through "
           f"serve_streams(backend=\"mega\"): no K1-K3, {wide_counts['K4']} K4 launches "
-          f"({wide_glob} global steps), 0 px, {128 / wide_s:.1f} frames/s")
+          f"({wide_glob} global steps), 0 px, {128 / wide_s:.1f} frames/s; "
+          f"{host_path}")
     # (d) the same route from the command line, on --scan-backend shared.
     reset_counts()
     rc = serve_main(["--synthetic", "1280x720x2049", "--max-frames", "32", "--streams", "2",
@@ -2608,8 +2692,103 @@ def main(argv=None) -> int:
                              "track_stream(shared)'s")
     host_ncc = "native C++ (libpvot)" if native.available() else "numpy"
     print(f"pvot-torch --host: {n_host} frames in {host_s:.3f} s, no kernel launched, bbox "
-          f"equal to track_stream(shared)'s, host NCC {host_ncc}")
+          f"equal to track_stream(shared)'s, host NCC {host_ncc} (the numpy host NCC took "
+          f"27.891 s for these 128 frames on an NVIDIA H100 80GB HBM3 at 700.00 W)")
     print(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+
+    # Phase 34 (before phase 33's line): the last modules.
+    t_phase = time.perf_counter()
+    # (a) The native library's build (phase 1 fails without it), and the
+    # host engine on it.
+    print(f"native host library: {json.dumps(native_build)}; pvot-torch --host "
+          f"{host_s:.3f} s for {n_host} frames (phase 32 (f)) against 27.891 s on the numpy "
+          f"host NCC")
+    # (b) The flow baseline on the card over the bench clip's first 257 frames.
+    from pvot_torch.models.flow import track_video_flow
+
+    n_flow = 257
+    fclip = frames[:n_flow]
+    fbox = target_bbox(spec, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fstate, fboxes = track_video_flow(fclip, fbox, device=dev)
+    flow_s = time.perf_counter() - t0
+    if {t.device.type for t in fstate} != {"cuda"}:
+        raise AssertionError(f"flow state on {[t.device for t in fstate]}, not all on the card")
+    # The CPU witness tracks a prefix: the flow is causal, so its boxes are
+    # the card run's first n_witness.
+    n_witness = 32
+    t0 = time.perf_counter()
+    _, cpu_boxes = track_video_flow(fclip[: n_witness + 1], fbox, device="cpu")
+    flow_cpu_s = time.perf_counter() - t0
+    flow_diff = np.flatnonzero((fboxes[:n_witness] != cpu_boxes).any(axis=1))
+    gt = np.array([target_bbox(spec, i)[:2] for i in range(1, n_flow)])
+    flow_err = float(np.abs(fboxes[:, :2] - gt).sum(axis=1).mean())
+    flow_fps = (n_flow - 1) / flow_s
+    print(f"flow baseline: track_video_flow over {n_flow - 1} tracked frames of the bench clip "
+          f"on the card in {flow_s:.3f} s: {flow_fps:.2f} frames/s against the main path's "
+          f"{result['value']:.1f} (phase 6); mean box error {flow_err:.3f} px (|dx| + |dy| "
+          f"against the ground truth); {len(flow_diff)} of the first {n_witness} frames differ from "
+          f"the CPU's run of them ({flow_cpu_s:.1f} s); its state on the card; on {smi}")
+    if len(flow_diff):
+        i = int(flow_diff[0])
+        raise AssertionError(f"flow: frame {i + 1} box {fboxes[i].tolist()} on the card, "
+                             f"{cpu_boxes[i].tolist()} on the CPU")
+    # (c) Search-sharded tracking: 2 gloo processes on this card, K4 on the
+    # slabs and strips, against the unsharded engine.
+    from pvot_torch.tools.dryrun_multichip import spawn
+
+    _, g_pallas = track_video(gframes[1:], gstate, gconfig, backend="pallas")
+    n_glob_p = int(g_pallas.used_global.sum())
+    sharded, sharded_err = {}, {}
+    for mesh_shape in ((1, 2), (2, 1)):
+        t0 = time.perf_counter()
+        ranks = spawn(2, sharded_rank, mesh_shape, "pallas", timeout=600)
+        for r, got in enumerate(ranks):
+            out = StepOutput(**got["out"])
+            for s_ in range(mesh_shape[0]):
+                compare_outputs(f"sharded {mesh_shape} rank {r} stream {s_} vs unsharded",
+                                StepOutput(*(v[:, s_] for v in out)), g_pallas)
+            want_k4 = len(g_pallas.bbox) + n_glob_p  # a slab launch a frame, a strip one
+            if got["K4"] != want_k4 or got["K5"]:
+                raise AssertionError(f"sharded {mesh_shape} rank {r}: {got['K4']} K4 launches "
+                                     f"(expected {want_k4}) and {got['K5']} K5")
+            if len(got["k4_err"]) != 2 or not max(got["k4_err"].values()) <= K4_ATOL:
+                raise AssertionError(f"sharded {mesh_shape} rank {r}: K4 at the slab and strip "
+                                     f"shapes, max |kernel - plain| {got['k4_err']} "
+                                     f"(<= {K4_ATOL} at two shapes)")
+        mesh_key = f"mesh_{mesh_shape[0]}x{mesh_shape[1]}"
+        sharded[mesh_key] = [got["K4"] for got in ranks]
+        sharded_err[mesh_key] = [got["k4_err"] for got in ranks]
+        print(f"search-sharded tracking: mesh (data {mesh_shape[0]}, search {mesh_shape[1]}), "
+              f"2 gloo processes on cuda:0, backend pallas, phase 11's clip ({len(g_pallas.bbox)} "
+              f"frames, {n_glob_p} global): boxes and used_global equal to the unsharded "
+              f"track_video(backend=\"pallas\"), scores under the contract; K4 launches by rank "
+              f"{[got['K4'] for got in ranks]}, no K5; K4 at each rank's slab and strip shapes "
+              f"(lanes x rows x cols) against its plain version, max |kernel - "
+              f"plain| by rank {[got['k4_err'] for got in ranks]} (<= {K4_ATOL}); "
+              f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    # (d) Serving across devices: two stream groups on this card.
+    reset_counts()
+    t0 = time.perf_counter()
+    _, served2 = serve_streams([iter(frames[o + 1 : o + 1 + n]) for o, n in zip(offsets, lengths)],
+                               starts, frames.shape[1:], config, chunk_size=chunk_size,
+                               devices=["cuda:0", "cuda:0"])
+    serve2_s = time.perf_counter() - t0
+    multi_k2 = counts()["K2"]
+    bit_equal, score_diff = True, 0.0
+    for s_ in range(8):
+        compare_outputs(f"serve_streams over 2 devices stream {s_} vs one device", served2[s_],
+                        served[s_])
+        bit_equal &= all(np.array_equal(a, b) for a, b in zip(served2[s_], served[s_]))
+        score_diff = max(score_diff, float(np.abs(served2[s_].score - served[s_].score).max()))
+    print(f"serving across devices: serve_streams(devices=[\"cuda:0\", \"cuda:0\"]) over phase "
+          f"7's 8 streams, {total} frames in {serve2_s:.3f} s: serve_fps {total / serve2_s:.1f} "
+          f"against {total / serve_s:.1f} on one device (phase 7); every stream equal to the "
+          f"one-device serve (bit-equal: {bit_equal}, max |score diff| {score_diff:.3g}: K2's "
+          f"float sums depend on the lanes in its launch); {multi_k2} K2 launches; "
+          f"{host_path}; on {smi}")
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s")
 
     def tier_fields(tiers):
         return {f"{p}pass": v for p, v in tiers.items()}
@@ -2728,6 +2907,11 @@ def main(argv=None) -> int:
             "region_1080p_160_r160_device_ms": k45_ms["k4_region_f32_ms"],
             "region_1080p_160_r160_profiler_ms": map_region_ms,
             "digests_equal_parent": True,
+            "sharded_launches_by_rank": sharded,
+            "sharded_max_abs_err_by_rank": sharded_err,
+            "sharded_launches_path": "phase 11's re-acquisition clip through "
+                                     "track_video_sharded(backend=\"pallas\"), 2 gloo ranks on "
+                                     "one card, meshes (data 1, search 2) and (data 2, search 1)",
             "scan_serving_launches": {
                 "serve_streams_shared_8_streams": scan_counts["K4"],
                 "serve_objects_shared_k4": ob_counts["K4"],

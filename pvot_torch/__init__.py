@@ -6,17 +6,24 @@ launch (pvot_torch.ops._build).  The serving entry points load lazily, as
 pvot/__init__.py:31-64 does.
 """
 
-from pvot_torch.config import TrackerConfig
+from pvot_torch.config import DEFAULT_CONFIG, WINDOWS_TREE_CONFIG, TrackerConfig
 from pvot_torch.tracker.mega import track_video_mega
-from pvot_torch.tracker.scan import track_video
+from pvot_torch.tracker.scan import track_video, track_video_batched
 from pvot_torch.tracker.state import StepOutput, TrackerState, init_state
+from pvot_torch.tracker.step import make_step
+
+__version__ = "0.1.0"
 
 __all__ = [
     "TrackerConfig",
+    "DEFAULT_CONFIG",
+    "WINDOWS_TREE_CONFIG",
     "TrackerState",
     "StepOutput",
     "init_state",
+    "make_step",
     "track_video",
+    "track_video_batched",
     "track_video_mega",
     "track_streams_mega",
     "track_objects_mega",

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from pvot_torch.ops.ncc_reference import cli_tier, tier_name
+from pvot_torch.runtime import native
 
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
@@ -305,6 +306,7 @@ def run_bench_streams(n_streams: int, length: int = 1536, chunk_size: int = 512,
         "serve_chunk": serve_chunk,
         "serve_chunks": len(timings),
         "serve_max_l1_err_px": max(serve_errs),
+        "native_host": native.build_info(),
         "tier": tier_name(highest, score_passes),
         "gpu": torch.cuda.get_device_name(0),
         "gpu_smi": gpu,
@@ -397,6 +399,7 @@ def run_bench_objects(n_objects: int, num_frames: int = 2048, chunk_size: int = 
         "serve_s": serve_s,
         "serve_chunk": serve_chunk,
         "serve_chunks": len(timings),
+        "native_host": native.build_info(),
         "tier": tier_name(highest, score_passes),
         "gpu": torch.cuda.get_device_name(0),
         "gpu_smi": gpu,

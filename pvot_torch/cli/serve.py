@@ -18,10 +18,11 @@ over one stream resumes it.
 
 --fast serves at the kernels' bf16 score tier of --score-passes (3 unless
 given), as pvot-serve does; --score-passes without --fast exits with code 2
-(pvot-serve ignores it there).  What the JAX front end has and the port not
-yet exits with code 2 and names its ROADMAP item: --devices (A12).  Video
-files need OpenCV, which the card's machine does not have: there, serve
---synthetic streams.
+(pvot-serve ignores it there).  --devices N spreads the streams over the
+first N devices of --device's kind (N CUDA devices, or the CPU N times), in
+contiguous groups, one host thread a group, as pvot-serve --devices does;
+objects mode serves its one stream on the first.  Video files need OpenCV,
+which the card's machine does not have: there, serve --synthetic streams.
 
 Examples:
   pvot-torch-serve cam0.mp4 cam1.mp4 cam2.mp4 --roi 600,320,80,80
@@ -29,6 +30,7 @@ Examples:
   pvot-torch-serve --synthetic 1280x720x300 --streams 8 --fast --score-passes 1
   pvot-torch-serve --synthetic 1280x720x300 --streams 1 --roi 600,320,80,80 --roi 100,90,64,48
   pvot-torch-serve --synthetic 1280x720x300 --streams 2 --search-radius 300 --scan-backend shared
+  pvot-torch-serve --synthetic 1280x720x300 --streams 8 --devices 2
 """
 
 from __future__ import annotations
@@ -43,11 +45,6 @@ from typing import List, Optional
 import numpy as np
 
 from pvot_torch.ops.backends import MODE_TO_BACKEND
-
-# Options of pvot-serve that the port does not have yet, and their ROADMAP item.
-_NOT_PORTED = {
-    "--devices": "serving across cards (ROADMAP A12)",
-}
 
 
 def parse_args(argv: List[str]):
@@ -97,6 +94,12 @@ def parse_args(argv: List[str]):
         help="torch device to serve on (cpu runs the kernels' plain versions)",
     )
     p.add_argument(
+        "--devices", type=int, default=0, metavar="N",
+        help="spread the streams over the first N devices of --device's kind "
+             "(contiguous groups, one host thread each, records unchanged; "
+             "0 = --device only)",
+    )
+    p.add_argument(
         "--trajectory-out", default=None, metavar="PREFIX",
         help="write per-stream JSON-lines trajectories to PREFIX.s<K>.jsonl "
              "(objects mode: per object, PREFIX.o<K>.jsonl)",
@@ -111,9 +114,6 @@ def parse_args(argv: List[str]):
              "(saved by --checkpoint-out) instead of --roi templates; "
              "frames then start at each stream's current position",
     )
-    for flag, what in _NOT_PORTED.items():
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help=f"not ported yet: {what}")
     args = p.parse_args(argv)
     if not args.videos and not args.synthetic:
         p.error("give video paths or --synthetic WxHxF")
@@ -149,10 +149,41 @@ def _tier(args) -> dict:
     return cli_tier(args.fast, args.score_passes)
 
 
+def _devices(args) -> list:
+    """--device, or with --devices N the first N devices of its kind (the CPU
+    N times), as pvot-serve slices jax.devices()[:N]."""
+    import torch
+
+    if args.devices <= 0:
+        return [args.device]
+    kind = torch.device(args.device).type
+    if kind == "cpu":
+        return ["cpu"] * args.devices
+    present = torch.cuda.device_count() if kind == "cuda" else 0
+    if args.devices > present:
+        raise SystemExit(f"--devices {args.devices}: {present} {kind} devices present")
+    return [f"{kind}:{i}" for i in range(args.devices)]
+
+
 def _serve_kw(args) -> dict:
     """The keywords every serving entry point takes from the command line."""
     return dict(scan_backend=args.scan_backend, chunk_size=args.chunk_size,
-                pipeline_depth=args.pipeline_depth, devices=[args.device], **_tier(args))
+                pipeline_depth=args.pipeline_depth, devices=_devices(args),
+                **_tier(args))
+
+
+def _on_devices(devices: list) -> str:
+    return f", {len(devices)} devices" if len(devices) > 1 else ""
+
+
+def _print_host() -> None:
+    """The native host library's build: with it the frame rings are
+    libpvot's, without it Python deques (FramePipeline.ring)."""
+    from pvot_torch.runtime import native
+
+    info = native.build_info()
+    ring = "native" if info["built"] else "python"
+    print(f"Host path: frame ring {ring}, native library {json.dumps(info)}")
 
 
 def _config(args):
@@ -165,10 +196,11 @@ def _config(args):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(list(sys.argv[1:] if argv is None else argv))
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            print(f"{flag}: {what} is not ported to pvot_torch yet", file=sys.stderr)
-            return 2
+    try:
+        _devices(args)
+    except SystemExit as e:
+        print(e, file=sys.stderr)
+        return 2
     if args.score_passes is not None and not args.fast:
         print("--score-passes sets the passes of the --fast tier: it needs --fast",
               file=sys.stderr)
@@ -346,11 +378,11 @@ def _run_objects(args, feed, states, frame_shape, closers) -> int:
     print(f"Serving 1 stream x {k} objects at {frame_shape[1]}x{frame_shape[0]}, "
           f"template {tw}x{th}, chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, "
           f"device {args.device}")
+    kw = _serve_kw(args)
+    kw["devices"] = kw["devices"][:1]  # one stream runs on one device
     t0 = time.perf_counter()
     try:
-        final, out = serve_objects(
-            feed, states, frame_shape, _config(args), **_serve_kw(args),
-        )
+        final, out = serve_objects(feed, states, frame_shape, _config(args), **kw)
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if the stream raises mid-serve
         for c in closers:
@@ -364,6 +396,7 @@ def _run_objects(args, feed, states, frame_shape, closers) -> int:
     rate = n * k / elapsed if elapsed > 0 else 0.0
     print(f"Serving summary: objects={k}, frames={n}, time={elapsed:.6g} s, "
           f"object-updates/s={rate:.6g}")
+    _print_host()
     if args.trajectory_out:
         for i in range(k):
             with open(f"{args.trajectory_out}.o{i}.jsonl", "w") as f:
@@ -389,19 +422,19 @@ def _run_serving(args, feeds, states, frame_shape, closers) -> int:
     from pvot_torch.utils.checkpoint import save_state
 
     th, tw = states.template.shape[-2:]
+    kw = _serve_kw(args)
     print(f"Serving {len(feeds)} streams at {frame_shape[1]}x{frame_shape[0]}, "
           f"template {tw}x{th}, chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, "
-          f"device {args.device}")
+          f"device {args.device}" + _on_devices(kw["devices"]))
     t0 = time.perf_counter()
     try:
-        final, outs = serve_streams(
-            feeds, states, frame_shape, _config(args), **_serve_kw(args),
-        )
+        final, outs = serve_streams(feeds, states, frame_shape, _config(args), **kw)
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if a stream raises mid-serve
         for c in closers:
             c.close()
     _report(outs, elapsed)
+    _print_host()
     if args.trajectory_out:
         _write_trajectories(args.trajectory_out, outs)
     if args.checkpoint_out:
@@ -417,18 +450,21 @@ def _run_serving_grouped(args, feeds, states_list, frame_shapes, closers) -> int
 
     shapes = sorted({(fs, tuple(st.template.shape)) for fs, st in zip(frame_shapes, states_list)})
     groups = ", ".join(f"{fw}x{fh}/t{tw}x{th}" for (fh, fw), (th, tw) in shapes)
+    kw = _serve_kw(args)
     print(f"Serving {len(feeds)} streams in {len(shapes)} geometry groups ({groups}), "
-          f"chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, device {args.device}")
+          f"chunk {args.chunk_size}, tier {tier_name(**_tier(args))}, device {args.device}"
+          + _on_devices(kw["devices"]))
     t0 = time.perf_counter()
     try:
         finals, outs = serve_streams_grouped(
-            feeds, states_list, frame_shapes, _config(args), **_serve_kw(args),
+            feeds, states_list, frame_shapes, _config(args), **kw,
         )
         elapsed = time.perf_counter() - t0
     finally:
         for c in closers:
             c.close()
     _report(outs, elapsed)
+    _print_host()
     if args.trajectory_out:
         _write_trajectories(args.trajectory_out, outs)
     if args.checkpoint_out:

@@ -32,6 +32,8 @@ class FramePipeline:
     frame_iter: yields uint8 BGR (H, W, 3) or gray (H, W) frames.
     Produces (chunk (chunk_size, H, W) uint8, n_real) pairs; the last chunk
     may be padded (repeat of the final frame) with n_real < chunk_size.
+    `ring` says which frame ring runs: "native" (libpvot's, when the native
+    library loads) or "python" (a deque, its fallback).
     """
 
     def __init__(
@@ -52,9 +54,11 @@ class FramePipeline:
         from pvot_torch.runtime import native
 
         if use_native and native.available():
+            self.ring = "native"
             self._ring = native.FrameRing(capacity, self._shape)
             self._convert = native.bgr_to_gray_u8
         else:  # pure-Python fallback ring
+            self.ring = "python"
             from collections import deque
 
             self._ring = None

@@ -26,6 +26,18 @@ Heterogeneous inputs (mixed frame sizes or template sizes) serve through
 serve_streams_grouped: one serve_streams call per geometry group, the groups
 in host threads of their own, each on its own CUDA streams.
 
+Several devices (pvot/io/serving.py:217 `_serve_streams_multidevice`):
+serve_streams(devices=[...]) splits the streams into contiguous groups whose
+sizes are within one of each other, one group a device, and serves each
+group through the one-device path (the kernel or the scan engines, as the
+geometry routes it) in a host thread of its own.  Streams are independent,
+so there are no collectives, and each stream's records are those of serving
+its group alone (on the card K2's float sums depend on the lanes in its
+launch, so a score can move by a few ulps against serving all the streams
+together; boxes and flags do not).  A device may repeat in the list (two
+groups on one card).
+serve_streams_grouped places its geometry groups round-robin on the devices.
+
 The scan engines.  backend != "mega" serves on that per-frame engine, and
 backend="mega" serves there on `scan_backend` when the geometry lies outside
 the JAX mega envelope (MegaGeometry.supported: a span over 512, a template
@@ -99,21 +111,15 @@ class _StreamFeed:
         self.pipe.close()
 
 
-def _check_options(backend: str, scan_backend: str, highest: bool, score_passes: int,
-                   devices) -> None:
+def _check_options(backend: str, scan_backend: str, highest: bool, score_passes: int) -> None:
     """The score tier must be one the kernels have (score_passes 1, 2 or 3,
     checked even when highest=True, as in JAX), the backend "mega" or an
-    engine the registry knows, and the scan engine one the registry knows;
-    several devices raise, naming their ROADMAP item."""
+    engine the registry knows, and the scan engine one the registry knows."""
     score_tier(highest, score_passes)
     if backend != "mega" and backend not in MODE_TO_BACKEND:
         raise ValueError(f"unknown backend: {backend!r}")
     if scan_backend not in MODE_TO_BACKEND:
         raise ValueError(f"unknown scan backend: {scan_backend!r}")
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            f"{len(devices)} devices: serving across cards is not ported yet (ROADMAP A12)"
-        )
 
 
 def _concat_outputs(outs: List[StepOutput]) -> StepOutput:
@@ -145,12 +151,17 @@ def serve_streams(
     frame_iters: S iterables yielding uint8 BGR (H, W, 3) or gray (H, W)
     frames (different lengths allowed).  states: a stacked TrackerState with
     a leading S axis (pvot_torch.parallel.multi.init_multi_state).  The
-    streams are served on devices[0] when given, else on the states' device.
+    streams are served on devices[0] when given one device, else on the
+    states' device; given several (a device may repeat), they spread over
+    them in contiguous groups, one group a device in a host thread of its
+    own (module docstring), and the final state comes back to the states'
+    device.
 
     Returns (final stacked TrackerState on that device, list of S host
     StepOutputs, one per stream, each with that stream's own frame count).
     timings, when given a list, receives one (frames_committed, seconds) pair
-    per lockstep chunk.
+    per lockstep chunk (several devices: each group's pairs, group after
+    group).
 
     backend="mega" serves every chunk through the multi-stream kernel K2
     inside the JAX mega envelope, and on `scan_backend` outside it; any other
@@ -159,16 +170,18 @@ def serve_streams(
     oldest one's records are read (1 = synchronous), and highest=False scores
     at `score_passes` bf16 passes (pvot/io/serving.py:94-104, the kernels'
     tiers); each stream's records are then track_video_mega's at that tier.
-    The scan engines take neither: each engine has its own tier.
-
-    Several devices raise (ROADMAP A12)."""
-    _check_options(backend, scan_backend, highest, score_passes, devices)
+    The scan engines take neither: each engine has its own tier."""
+    _check_options(backend, scan_backend, highest, score_passes)
     config = config or TrackerConfig()
     n = num_streams(states)
     if len(frame_iters) != n:
         raise ValueError(f"{len(frame_iters)} frame iterators for {n} states")
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    if devices is not None and len(devices) > 1:
+        return _serve_streams_multidevice(
+            frame_iters, states, frame_shape, config, backend, scan_backend, chunk_size,
+            timings, highest, pipeline_depth, list(devices), score_passes)
     device = torch.device(devices[0]) if devices else states.template.device
     frame_shape = tuple(frame_shape)
     templ_shape = tuple(states.template.shape[-2:])
@@ -185,6 +198,45 @@ def serve_streams(
         backend = scan_backend
     return _serve_streams_scan(frame_iters, states, frame_shape, config, backend, chunk_size,
                                timings, device)
+
+
+def _serve_streams_multidevice(frame_iters, states, frame_shape, config, backend: str,
+                               scan_backend: str, chunk_size: int, timings: Optional[list],
+                               highest: bool, pipeline_depth: int, devices: list,
+                               score_passes: int):
+    """pvot/io/serving.py:217: contiguous stream groups whose sizes are
+    within one of each other (empty groups drop), group g on devices[g],
+    each through serve_streams on its one device in a host thread of its
+    own; the finals restacked on the states' device, the outputs in stream
+    order.  The per-group rollback of JAX's poison mode is not ported
+    (ROADMAP R1): global frames run in the kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(frame_iters)
+    n_dev = min(len(devices), n)
+    bounds = [round(g * n / n_dev) for g in range(n_dev + 1)]
+    groups = [(bounds[g], bounds[g + 1], devices[g]) for g in range(n_dev)
+              if bounds[g + 1] > bounds[g]]
+
+    def run_group(lo, hi, device):
+        group_timings: Optional[list] = [] if timings is not None else None
+        final, outs = serve_streams(
+            frame_iters[lo:hi], TrackerState(*(v[lo:hi] for v in states)), frame_shape,
+            config, backend=backend, scan_backend=scan_backend, chunk_size=chunk_size,
+            timings=group_timings, highest=highest, pipeline_depth=pipeline_depth,
+            devices=[device], score_passes=score_passes)
+        return final, outs, group_timings
+
+    with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+        futures = [pool.submit(run_group, *g) for g in groups]
+        results = [f.result() for f in futures]
+    home = states.template.device
+    final = TrackerState(*(torch.cat([v.to(home) for v in vs])
+                           for vs in zip(*(r[0] for r in results))))
+    if timings is not None:
+        for _, _, gt in results:
+            timings.extend(gt)
+    return final, [o for _, outs, _ in results for o in outs]
 
 
 def serve_objects(
@@ -209,16 +261,19 @@ def serve_objects(
     states: a stacked TrackerState with a leading K axis, one template size
     (pvot_torch.parallel.multi.init_multi_state) or mixed sizes in a shared
     bucket (init_multi_state_bucketed).  The objects are served on
-    devices[0] when given, else on the states' device.
+    devices[0] when given, else on the states' device: one stream runs on
+    one device (JAX's serve_objects takes no devices), so several raise.
 
     Returns (final stacked TrackerState on that device, host StepOutput with
     the (F, K) leading layout, F = 0 included).  timings, when given a list,
     receives one (frames, seconds) pair per chunk.  The backends, the route
     out of the envelope (on the bucket's geometry, which binds JAX's
-    `supported` too), the score tier and the devices are as in
-    serve_streams; mixed template sizes serve on the bucketed torch-ops
-    engine there, whatever the scan engine, as in JAX."""
-    _check_options(backend, scan_backend, highest, score_passes, devices)
+    `supported` too) and the score tier are as in serve_streams;
+    mixed template sizes serve on the bucketed torch-ops engine there,
+    whatever the scan engine, as in JAX."""
+    _check_options(backend, scan_backend, highest, score_passes)
+    if devices is not None and len(devices) > 1:
+        raise ValueError(f"serve_objects serves one stream on one device, not {len(devices)}")
     config = config or TrackerConfig()
     k = num_streams(states)
     if chunk_size < 1:
@@ -429,12 +484,14 @@ def serve_streams_grouped(
     Returns (list of S final single-stream TrackerStates, list of S host
     StepOutputs) in input order.  timings, when given, receives each group's
     per-chunk (frames, seconds) pairs, group after group.  The backends and
-    the score tier are every group's, as in serve_streams; each group routes
-    on its own geometry, so a group outside the mega envelope serves on
-    `scan_backend` while the others serve on the kernel."""
+    the score tier are every group's, as in serve_streams; each
+    group routes on its own geometry, so a group outside the mega envelope
+    serves on `scan_backend` while the others serve on the kernel.  With
+    devices, group g serves on devices[g % len(devices)]
+    (pvot/io/serving.py:383)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    _check_options(backend, scan_backend, highest, score_passes, devices)
+    _check_options(backend, scan_backend, highest, score_passes)
     config = config or TrackerConfig()
     n = len(frame_iters)
     if len(states_list) != n or len(frame_shapes) != n:
@@ -448,20 +505,20 @@ def serve_streams_grouped(
         groups.setdefault(key, []).append(s)
     group_list = list(groups.items())
 
-    def run_group(key, idxs):
+    def run_group(gi, key, idxs):
         group_timings: Optional[list] = [] if timings is not None else None
+        device = devices[gi % len(devices)] if devices else states_list[idxs[0]].template.device
         final, outs = serve_streams(
-            [frame_iters[i] for i in idxs],
-            stack_states([states_list[i] for i in idxs],
-                         devices[0] if devices else states_list[idxs[0]].template.device),
+            [frame_iters[i] for i in idxs], stack_states([states_list[i] for i in idxs], device),
             key[0], config, backend=backend, scan_backend=scan_backend, chunk_size=chunk_size,
             timings=group_timings, highest=highest, pipeline_depth=pipeline_depth,
-            devices=devices, score_passes=score_passes,
+            devices=[device], score_passes=score_passes,
         )
         return final, outs, group_timings
 
     with ThreadPoolExecutor(max_workers=len(group_list)) as pool:
-        futures = [pool.submit(run_group, key, idxs) for key, idxs in group_list]
+        futures = [pool.submit(run_group, gi, key, idxs)
+                   for gi, (key, idxs) in enumerate(group_list)]
         results = [f.result() for f in futures]
 
     finals: list = [None] * n

@@ -2,7 +2,9 @@
 of pvot/ops/ncc_matmul.py.
 
   cross-correlation   im2col along x, one product with the template rows,
-                      then the sum of th shifted slices (`cross_correlate`)
+                      then the sum of th shifted slices (`cross_correlate`);
+                      or a 1-D convolution along x with the template rows
+                      as filters, then the same sum (`cross_correlate_conv1d`)
   window sums         exclusive integral images, four corners a box
                       (`sliding_box_sums`, `_box_sums_traced`)
 
@@ -43,6 +45,22 @@ def cross_correlate(img: torch.Tensor, templ: torch.Tensor) -> torch.Tensor:
     # cross[dy, dx] = sum_r r1[dy + r, dx, r]: the th shifted slices as one
     # strided view, summed over r.
     shifted = r1.as_strided((th, out_h, out_w), (out_w * th + 1, out_w * th, th))
+    return shifted.sum(dim=0)
+
+
+def cross_correlate_conv1d(img: torch.Tensor, templ: torch.Tensor) -> torch.Tensor:
+    """`cross_correlate` by a 1-D valid convolution along the width
+    (pvot/ops/ncc_matmul.py:78): the template's rows are th filters over
+    every image row, r1[y, r, dx] = sum_c img[y, dx + c] * templ[r, c], then
+    cross[dy, dx] = sum_r r1[dy + r, r, dx].  The convolution runs in full
+    float32 on the card (`full_f32`: cuDNN would take TF32)."""
+    th, tw = templ.shape
+    y, w = img.shape
+    out_h, out_w = y - th + 1, w - tw + 1
+    with full_f32(img.device):
+        r1 = F.conv1d(img[:, None, :], templ[:, None, :]).contiguous()  # (Y, th, out_w)
+    # The th shifted slices r1[r : r + out_h, r, :] as one strided view.
+    shifted = r1.as_strided((th, out_h, out_w), (th * out_w + out_w, th * out_w, 1))
     return shifted.sum(dim=0)
 
 

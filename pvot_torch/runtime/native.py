@@ -5,8 +5,17 @@ Copied, not imported (importing `pvot` imports JAX).  The C++ source is
 pvot/runtime/libpvot.cpp, byte for byte; the library builds with make/g++ on
 first use into build/pvot_torch/ at the root of the checkout, not into the
 source tree.  Every entry point has a pure-numpy fallback, so the port works
-without a toolchain.  tests/test_torch_serving.py and tests/test_torch_host.py
-hold the copies equal to the originals.
+without a toolchain; `build_info()` says which build, if any, loaded.
+tests/test_torch_serving.py and tests/test_torch_host.py hold the copies
+equal to the originals.
+
+The build.  `make` first builds libpvot.so with the Makefile's flags
+(-fopenmp).  A compiler without OpenMP's runtime (no libgomp.spec) refuses
+those; make then runs once more, with -fopenmp-simd in place of -fopenmp,
+into libpvot_simd.so: libpvot.cpp calls no omp_ function, so its `omp
+parallel for` loops run on one thread there and its `omp simd` loops stay
+vectorised.  That build searches simd_include/ (an empty omp.h) after the
+system's headers, for a compiler that has no omp.h either.
 """
 
 from __future__ import annotations
@@ -15,49 +24,67 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _OUT = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "pvot_torch")
 _SO = os.path.join(_OUT, "libpvot.so")
+# The retry's flags: the Makefile's, with -fopenmp-simd for -fopenmp.
+SIMD_CXXFLAGS = ("-O3 -march=native -fPIC -fopenmp-simd -std=c++17 -Wall -idirafter "
+                 + os.path.join(_DIR, "simd_include"))
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
+_openmp: Optional[str] = None
 
 
-def _build() -> bool:
+def _make(out: str, *overrides: str) -> None:
+    subprocess.run(["make", "-s", "-C", _DIR, f"OUT={out}", *overrides], check=True,
+                   capture_output=True, timeout=120)
+
+
+def _build(out: str = _OUT) -> Tuple[Optional[str], Optional[str]]:
+    """Run make into `out` (the Makefile's flags, then once more with
+    SIMD_CXXFLAGS into libpvot_simd.so if that fails); (path of the
+    library, "fopenmp" or "fopenmp-simd"), or (None, None) when neither
+    build ran and no library of either kind is there.  make is a timestamp
+    no-op when a library is fresh and a rebuild when libpvot.cpp changed (a
+    stale binary must never shadow source changes); a library already built
+    still loads when the toolchain is missing."""
+    so, simd_so = os.path.join(out, "libpvot.so"), os.path.join(out, "libpvot_simd.so")
     try:
-        subprocess.run(
-            ["make", "-s", "-C", _DIR, f"OUT={_OUT}"],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return os.path.exists(_SO)
-    except Exception:
-        return False
+        _make(out)
+        return so, "fopenmp"
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        _make(out, f"TARGET={simd_so}", f"CXXFLAGS={SIMD_CXXFLAGS}")
+        return simd_so, "fopenmp-simd"
+    except (OSError, subprocess.SubprocessError):
+        pass
+    for path, kind in ((so, "fopenmp"), (simd_so, "fopenmp-simd")):
+        if os.path.exists(path):
+            return path, kind
+    return None, None
 
 
 def load() -> Optional[ctypes.CDLL]:
     """Load (building if needed) the native library; None if unavailable."""
-    global _lib, _build_failed
+    global _lib, _build_failed, _openmp
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        # Always run make: it's a timestamp no-op when the .so is fresh and
-        # a rebuild when libpvot.cpp changed (a stale binary must never
-        # shadow source changes).  A pre-existing .so still loads when the
-        # toolchain is missing.
-        if not _build() and not os.path.exists(_SO):
-            _build_failed = True
-            return None
+        path, kind = _build()
         try:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(path) if path else None
         except OSError:
+            lib = None
+        if lib is None:
             _build_failed = True
             return None
+        _openmp = kind
         lib.pvot_bgr_to_gray_u8.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ]
@@ -90,6 +117,13 @@ def load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return load() is not None
+
+
+def build_info() -> dict:
+    """{"built": whether the library loaded, "openmp": "fopenmp" or
+    "fopenmp-simd" (the build that loaded), or None}."""
+    built = available()
+    return {"built": built, "openmp": _openmp if built else None}
 
 
 def bgr_to_gray_u8(bgr: np.ndarray) -> np.ndarray:

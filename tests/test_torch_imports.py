@@ -39,7 +39,9 @@ def test_port_imports_without_jax_or_pvot():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["names"]) >= 40  # every module of the package, pvot_torch.tools included
-    assert {"pvot_torch.models.host", "pvot_torch.utils.timing"} <= set(got["names"])
+    assert {"pvot_torch.models.host", "pvot_torch.utils.timing", "pvot_torch.models.flow",
+            "pvot_torch.models.csrt", "pvot_torch.parallel.sharded",
+            "pvot_torch.tools.dryrun_multichip"} <= set(got["names"])
     assert got["bad"] == [], f"pvot_torch pulled in {got['bad']}"
     assert got["unbuilt"], "importing pvot_torch loaded the kernel library"
 
@@ -126,3 +128,21 @@ def test_synthetic_clip_byte_equal(kind):
         assert tsyn.target_bbox(got_spec, i) == jsyn.target_bbox(want_spec, i)
     bgr = next(tsyn.generate_bgr_frames(got_spec))
     assert bgr.tobytes() == next(jsyn.generate_bgr_frames(want_spec)).tobytes()
+
+
+def test_exports_match_pvot():
+    """Every name in pvot/__init__.py's __all__, and its __version__, is on
+    pvot_torch (read from the source: importing pvot imports JAX)."""
+    import ast
+
+    import pvot_torch
+
+    with open(os.path.join(REPO, "pvot", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    assigned = {t.id: node.value for node in tree.body if isinstance(node, ast.Assign)
+                for t in node.targets if isinstance(t, ast.Name)}
+    names = ast.literal_eval(assigned["__all__"])
+    assert "make_step" in names and "WINDOWS_TREE_CONFIG" in names
+    assert [n for n in names if not hasattr(pvot_torch, n)] == []
+    assert pvot_torch.__version__ == ast.literal_eval(assigned["__version__"]) == "0.1.0"
+    assert set(names) <= set(pvot_torch.__all__)

@@ -28,7 +28,7 @@ from pvot.io.synthetic import SyntheticSpec, generate_gray_video, target_bbox
 from pvot.tracker.scan import track_video as jax_track_video
 from pvot.tracker.state import init_state as jax_init_state
 from pvot_torch.convert import state_from_numpy, state_to_numpy
-from pvot_torch.io.serving import _StreamFeed, serve_streams, serve_streams_grouped
+from pvot_torch.io.serving import _StreamFeed, serve_objects, serve_streams, serve_streams_grouped
 from pvot_torch.parallel.multi import init_multi_state, stack_states, unstack_state
 from pvot_torch.tracker.scan import track_video_batched
 
@@ -185,12 +185,24 @@ def test_stream_feed_holds_after_end(monkeypatch, use_native):
     (dict(highest=False, score_passes=4), "score_passes"), (dict(devices=["cpu", "cpu"]), "A12"),
 ])
 def test_serving_options_not_ported_raise(streams, kwargs, item):
-    """Options the port does not have raise naming their ROADMAP item; a score
-    tier the kernels do not have raises ValueError, as in JAX."""
-    error = ValueError if item == "score_passes" else NotImplementedError
-    with pytest.raises(error, match=item):
+    """A score tier the kernels do not have raises ValueError, as in JAX.
+    Several devices (ROADMAP A12) are ported: serve_streams and
+    serve_streams_grouped serve over them, and serve_objects, which serves
+    one stream, raises ValueError for more than one."""
+    if item == "A12":
+        one = [iter(streams[0][0][1:4])]
+        _, outs = serve_streams(one, _stacked(streams[:1]), (94, 250), chunk_size=2, **kwargs)
+        assert outs[0].bbox.shape == (3, 4)
+        _, outs = serve_streams_grouped([iter(streams[0][0][1:4])],
+                                        [state_from_numpy(streams[0][1], device="cpu")],
+                                        [(94, 250)], chunk_size=2, **kwargs)
+        assert outs[0].bbox.shape == (3, 4)
+        with pytest.raises(ValueError, match="one device"):
+            serve_objects(iter(streams[0][0][1:]), _stacked(streams[:1]), (94, 250), **kwargs)
+        return
+    with pytest.raises(ValueError, match=item):
         serve_streams([iter(streams[0][0][1:])], _stacked(streams[:1]), (94, 250), **kwargs)
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         serve_streams_grouped([iter(streams[0][0][1:])], [state_from_numpy(streams[0][1], device="cpu")],
                               [(94, 250)], **kwargs)
 
@@ -268,7 +280,13 @@ def test_cli_synthetic_streams_write_trajectories(tmp_path):
     (("--synthetic", "200x120x3", "--devices", "2"), "A12"),
 ])
 def test_cli_not_ported_modes_exit_2(tmp_path, args, item):
+    """--score-passes without --fast exits 2.  --devices (ROADMAP A12) is
+    ported: with --device cpu it serves the streams over the CPU twice."""
     out = _cli(*args, "--device", "cpu", cwd=tmp_path)
+    if item == "A12":
+        assert out.returncode == 0, out.stderr
+        assert "2 devices" in out.stdout and "Serving summary: streams=4, frames=8" in out.stdout
+        return
     assert out.returncode == 2
     assert item in out.stderr
 

@@ -151,7 +151,18 @@ persistent launch a chunk.  Phases, in order, none of them caught:
  25. the same for the Pallas NCC probe ladder T5 (pvot_torch.tools
      .pallas_probe, csrc/pallas_probe.cu and the T4 kernels it shares): 17
      probes, K4 twice (small_ncc, headline_ncc; maps within 1e-4 of the
-     plain version);
+     plain version); then the product sweep (`product_sweep`): the T4 and
+     T5 product probes and the product kernels' edge shapes
+     (fused_argmax_probe.GEMM_EDGES: k not a multiple of the split, m =
+     136, n not a multiple of 8 or 32, unaligned rows, band rows, B as (n,
+     k) and as bf16 planes), each held to its check and its plain version
+     within 1e-6 (float32) or 1e-5 (bf16) of the largest value, one launch
+     a call, two calls bit-equal; after phase 28, beside the other
+     graph-route timings, each probe's library call's device us and each
+     product probe's by the graph route (`product_timings`), and with
+     --parent the parent tree's product kernels (its library, built once
+     there and used again in phase 31) and this tree's in turns on the
+     same operands;
  26. ROADMAP C open check 1: the `xla` engine's full map of the first global
      frame of phase 3's re-acquisition clip on the card (full_f32) against
      the CPU: the same argmax, the peak within 1e-5, the whole map within
@@ -161,7 +172,9 @@ persistent launch a chunk.  Phases, in order, none of them caught:
      path and the batch-4 clip, as sha256 digests, equal to the parent
      tree's (PARENT_DIGESTS: the parent's K1, two launches a frame);
  28. the main path under torch.profiler: one kernel of the port (the
-     persistent chunk kernel), launched once a chunk, and no commit kernel;
+     persistent chunk kernel), launched once a chunk, and no commit kernel,
+     in each of two sessions (the second's records count the launches, the
+     first's are reported);
  29. with --parent DIR only: the parent tree at DIR and this one timed in
      turns (parent, change, change, parent), each in its own process on the
      card (`time_tree`: the main path's frames/s at every tier, K2 at S = 8,
@@ -1215,6 +1228,105 @@ def run_probe_catalogue(dev, tool, k45_probes, k_launches: dict, counts, reset_c
             "plain_ms": sum(p["plain_ms"] for p in probes.values()), "bound_ms": bound,
             "bound_by": "operations" if by_ops >= bound - by_ops else "bytes",
             "library_ms": None, "probes": probes}
+
+
+# The product probes of T4 and T5 (csrc/argmax_probe.cu's two P3 kernels).
+PRODUCT_PROBES = ("dot_high_emul", "dot_rhs_lane", "matmul", "big_matmul", "dot_highest",
+                  "dot_high", "scratch_copy_dot", "unrolled_dots", "selector_dot")
+
+
+def product_sweep(dev) -> dict:
+    """Phases 24-25's product sweep: every product probe of T4 and T5 and
+    every edge shape (fused_argmax_probe.GEMM_EDGES) on the card, the gemm
+    counter reset just before: each held to its own check and to its plain
+    version (float32 within 1e-6, bf16 passes 1e-5 of the plain version's
+    largest value), one launch a call, two calls bit-equal;
+    `product_timings` times them after phase 28."""
+    from pvot_torch.tools import fused_argmax_probe as fap
+    from pvot_torch.tools import pallas_probe as pp
+
+    out = {}
+    for name, make in [*((n, m) for n, m in fap.PROBES + pp.PROBES if n in PRODUCT_PROBES),
+                       *fap.GEMM_EDGE_PROBES]:
+        case = make()
+        args = case.args(dev)
+        fap.reset_launches(fap.gemm)
+        res = fap.run_case(name, case, dev)
+        one, two = case.call(*args), case.call(*args)
+        torch.cuda.synchronize()
+        if fap.gemm.launches != 3 or not torch.equal(one, two):
+            raise AssertionError(f"product {name}: {fap.gemm.launches} launches for 3 calls, "
+                                 f"two calls bit-equal: {torch.equal(one, two)}")
+        m, k, n = fap.gemm_shape(*case.product(*args))
+        passes = case.passes
+        plan = fap.gemm_plan(m, n, k, passes,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+        out[name] = {"shape": [m, k, n], "passes": passes, "splits": plan.splits,
+                     "blocks": plan.blocks, "probe_err": res["err"],
+                     "max_abs_err": res["max_abs_err"]}
+        print(f"product {name} {out[name]['shape']} (m, k, n) at {passes} passes: {plan.splits} "
+              f"splits, {plan.blocks} blocks; probe error {res['err']:.3g}, max |kernel - plain| "
+              f"{res['max_abs_err']:.3g}; one launch a call, two calls bit-equal", flush=True)
+    return out
+
+
+def product_timings(dev, smi: str, parent_lib: str = None) -> dict:
+    """After phase 28, with the other graph-route timings: each product
+    probe's device us a launch by the graph route (`graph_ms` over its C
+    entry) beside the library call's (fused_argmax_probe.library_device_us,
+    the same route);
+    with `parent_lib` (the parent tree's kernel library), the parent's
+    pvot_probe_gemm and this tree's on the same operands in turns (parent,
+    change, change, parent); raises AssertionError, after every product is
+    timed, where the change is more than 10 % slower than the parent in
+    either pair."""
+    import ctypes
+
+    from pvot_torch.ops import _build
+    from pvot_torch.tools import fused_argmax_probe as fap
+    from pvot_torch.tools import pallas_probe as pp
+
+    lib = _build.load_library()
+    if parent_lib:
+        # The parent's pvot_probe_gemm: a, lda, b, b_lo, b_kind, ldb, c, m, n, k, passes,
+        # stream (no plan, no workspace).
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int  # noqa: E741
+        parent = ctypes.CDLL(parent_lib).pvot_probe_gemm
+        parent.argtypes, parent.restype = [P, L, P, P, I, I, P, I, I, I, I, P], I
+    out = {}
+    for name, make in ((n, m) for n, m in fap.PROBES + pp.PROBES if n in PRODUCT_PROBES):
+        case = make()
+        args = case.args(dev)  # kept alive with the output: xs points into both
+        keep, xs = fap.gemm_c_args(*case.product(*args))
+        change = lambda s: _build.check(lib.pvot_probe_gemm(*xs, s), name)  # noqa: E731
+        t = out[name] = {"graph_us": graph_ms(change) * 1e3,
+                         "library_graph_us": fap.library_device_us(case, dev)}
+        line = (f"product {name}: graph route {t['graph_us']:.3f} us a launch, torch.matmul "
+                f"{t['library_graph_us']:.3f} us")
+        if parent_lib:
+            before = lambda s: _build.check(parent(*xs[:11], s), name)  # noqa: E731
+            turns = t["in_turns_us"] = [graph_ms(f) * 1e3 for f in (before, change, change, before)]
+            p1, c1, c2, p2 = turns
+            t["within_10pct"] = c1 <= 1.1 * p1 and c2 <= 1.1 * p2
+            line += (f"; in turns (parent, change, change, parent) "
+                     f"{' / '.join(f'{v:.3f}' for v in turns)}, at most 10 % slower in both "
+                     f"pairs: {t['within_10pct']}")
+        print(f"{line} on {smi}", flush=True)
+    slower = [name for name, t in out.items() if t.get("within_10pct") is False]
+    if slower:
+        raise AssertionError(f"products more than 10 % slower than the parent's: {slower}")
+    return out
+
+
+def parent_library(root: str) -> str:
+    """The parent tree's kernel library, built by its own _build in its
+    own checkout at `root`."""
+    import subprocess
+
+    return subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from pvot_torch.ops import _build; print(_build.build())", root],
+        cwd=root, capture_output=True, text=True, check=True).stdout.split()[-1]
 
 
 def check_full_map_on_card(dev, frames_u8, rows, state) -> None:
@@ -2473,6 +2585,11 @@ def main(argv=None) -> int:
     print(f"probe catalogues on {torch.cuda.get_device_name(0)} ({smi}): T4 {t4['launches']} "
           f"launches, T5 {t5['launches']}; every probe held to its JAX bound and its plain "
           f"version (largest |kernel - plain| {t4['max_abs_err']:.3g}, {t5['max_abs_err']:.3g})")
+    # The product sweep: the product probes and edge shapes, one launch a
+    # call, two calls bit-equal (timed after phase 28).
+    t_phase = time.perf_counter()
+    products = product_sweep(dev)
+    print(f"product sweep: {len(products)} products, {time.perf_counter() - t_phase:.1f} s")
 
     # Phase 26: ROADMAP C open check 1, the xla full map of a global frame of
     # phase 3's re-acquisition clip on the card against the CPU.
@@ -2501,21 +2618,49 @@ def main(argv=None) -> int:
     print(f"K1 digests: {len(digests)} clips x {len(digests['chunk64'])} tiers, records, final "
           f"state and template equal to the parent tree's bit for bit: {json.dumps(digests)}")
 
-    # Phase 28: the main path under torch.profiler: one kernel of the port's
-    # (the persistent chunk kernel), one launch a chunk, no commit kernel.
-    _, by_kernel, _ = profiled(lambda: track_video_mega(staged, state, config, chunk_size=512),
-                               "chunk_kernel")
-    # The port's kernels are in an anonymous namespace of their own;
-    # PyTorch's (the wrapper's small tensor ops) are under at::.
-    ours = {k: v for k, v in by_kernel.items() if k.startswith("void (anonymous namespace)::")}
-    if (len(ours) != 1 or "chunk_kernel" not in next(iter(ours))
-            or next(iter(ours.values()))[0] != n_main // 512
-            or any("commit_kernel" in k or "lookahead_kernel" in k for k in by_kernel)):
-        raise AssertionError(f"the main path's kernels under the profiler: {ours}")
-    prof_name, (prof_launches, prof_ms) = next(iter(ours.items()))
+    # Phase 28: the main path under torch.profiler, in two sessions.  Each:
+    # one kernel of the port's (the persistent chunk kernel), launched once a
+    # chunk by its counter, and no commit kernel.  The second session's
+    # records must count every launch; the first's count is reported: in this
+    # process the first session after phases 24-27 has come back one chunk
+    # kernel's record short (3 of the 4 launches) while the counter read 4.
+    sessions = []
+    for i in range(2):
+        reset_counts()
+        _, by_kernel, _ = profiled(
+            lambda: track_video_mega(staged, state, config, chunk_size=512), "chunk_kernel")
+        expect_counts(f"phase 28, profiler session {i + 1}", K1=n_main // 512)
+        # The port's kernels are in an anonymous namespace of their own;
+        # PyTorch's (the wrapper's small tensor ops) are under at::.
+        ours = {k: v for k, v in by_kernel.items()
+                if k.startswith("void (anonymous namespace)::")}
+        if (len(ours) != 1 or "chunk_kernel" not in next(iter(ours))
+                or any("commit_kernel" in k or "lookahead_kernel" in k for k in by_kernel)):
+            raise AssertionError(f"the main path's kernels under profiler session {i + 1}: "
+                                 f"{ours}")
+        sessions.append(next(iter(ours.items())))
+    prof_name, (prof_launches, prof_ms) = sessions[1]
+    prof_first_records = sessions[0][1][0]
+    if prof_launches != n_main // 512:
+        raise AssertionError(f"the second profiler session recorded {prof_launches} chunk "
+                             f"kernels for {n_main // 512} launches")
     print(f"main path under torch.profiler: one kernel of the port, {prof_name[:90]}, "
           f"{prof_launches} launches, {prof_ms / n_main * 1e3:.3f} us a frame on the device; "
-          f"no commit kernel")
+          f"no commit kernel (first session: {prof_first_records} records of "
+          f"{n_main // 512} launches)")
+
+    # After phase 28: the graph-route timings of phases 24-25, every probe's
+    # library call and the products (with --parent, in turns against the
+    # parent tree's library, which phase 31 uses again).
+    parent_lib = parent_library(opts.parent) if opts.parent else None
+    for t_cat, tool in ((t4, fap), (t5, pp)):
+        for name, make in tool.PROBES:
+            us = fap.library_device_us(make(), dev)
+            t_cat["probes"][name]["library_device_ms"] = None if us is None else us / 1e3
+            if us is not None:
+                print(f"{tool.__name__.rsplit('.', 1)[1]} {name}: the library call {us:.3f} us a "
+                      f"call on the device (graph route)")
+    t4["product_timings"] = product_timings(dev, smi, parent_lib)
 
     # Phase 29 (with --parent only): the parent tree and this one in turns.
     turns = in_turns(opts.parent, frames) if opts.parent else None
@@ -2549,12 +2694,6 @@ def main(argv=None) -> int:
 
     libs = [None]
     if opts.parent:
-        import subprocess
-
-        parent_lib = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-             "from pvot_torch.ops import _build; print(_build.build())", opts.parent],
-            cwd=opts.parent, capture_output=True, text=True, check=True).stdout.split()[-1]
         libs = [parent_lib, None, None, parent_lib]
     step_runs = []
     for lib in libs:
@@ -2833,6 +2972,7 @@ def main(argv=None) -> int:
             "digests_equal_parent": True,
             "mega_chunk_step_launches": step_k1,
             "main_path_profiler_device_us_per_frame": prof_ms / n_main * 1e3,
+            "main_path_profiler_records_by_session": [prof_first_records, prof_launches],
             "in_turns": turns,
         },
         {
@@ -3019,6 +3159,7 @@ def main(argv=None) -> int:
             "source": "pvot_torch/csrc/argmax_probe.cu",
             "replaces": "tools/fused_argmax_probe.py",
             **t4,
+            "products": products,
             "ms_unit": "one call of every probe, summed (each probe's in `probes`)",
         },
         {

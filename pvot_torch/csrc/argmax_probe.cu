@@ -27,8 +27,9 @@
 //                           concatenated row bands of scratch_copy_dot.
 //      gemm_mma_kernel      dot_high_emul :287 (B as bf16 hi and lo planes);
 //                           T5 matmul, big_matmul (1 bf16 pass) and dot_high
-//                           (3 passes): warp-level mma.sync.m16n8k16 through
-//                           tiers.cuh, float32 sums.
+//                           (3 passes): mma.sync.m16n8k16 through tiers.cuh,
+//                           float32 sums.  Both take one plan (see P3 below):
+//                           C in tiles, k split over blocks, operands staged.
 //   P4 window_kernel        dma_dyn_2d :769, dma_3d_lead :811, dma_u8_slab
 //                           :859; T5 dyn_sublane, concat_lanes,
 //                           aligned_dyn16, slice16_add: sums of row-shifted
@@ -48,12 +49,19 @@
 //                           function): acc[y, dx] = sum_p sum_{l < L}
 //                           w[y + p, l] t[p, (l - dx) mod M], float32.
 //
-// What bounds them on the H100: launch latency.  Every probe moves at most
-// a few hundred KB and does at most a few tens of MFLOP, nanoseconds to
-// about a microsecond of the card's peak rates, against microseconds for a
-// launch; PERF.md has each one's time beside its bound.  They are checked
-// microkernels of the constructs that a persistent chunk kernel is built
-// from, not tuned.  Build without --use_fast_math.
+// What bounds them on the H100.  Most probes move at most a few hundred KB
+// and do at most a few tens of MFLOP: nanoseconds to about a microsecond at
+// the card's peak rates, against microseconds for a launch, so they are
+// launch-bound under any design; they are checked microkernels of the
+// constructs a persistent chunk kernel is built from, not tuned.  The P3
+// products are the exception: big_matmul reads 10.5 MB of float32 B (3.3
+// us at 3.35 TB/s), dot_highest and its kin 1 MB (0.33 us), dot_rhs_lane
+// does 71 MFLOP of float32 FMAs (1.06 us at 67 TFLOP/s), against a few
+// blocks of scalar loads in their first port.  Their design (P3): k split
+// over enough blocks to fill the card, the operands staged by 16-byte
+// cp.async, and the splits added in a fixed order in the same launch.
+// PERF.md has each probe's time beside its bound.  Build without
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -181,14 +189,15 @@ __global__ void ew_kernel(int op, const void* __restrict__ x, const void* __rest
 
 enum BKind { kBKN = 0, kBNK = 1, kBPlanes = 2 };  // B f32 (k, n); f32 (n, k); bf16 hi, lo (k, n)
 
-constexpr int kFmaRows = 8, kFmaCols = 32;
+constexpr int kFmaRows = 8;  // rows of C a thread of gated_gemm_kernel sums
 
 // acc[r] += (A B)[r0 + r][j] over k in [k_lo, k_hi) for r < kFmaRows, in
 // float32 FMAs: each chunk of kChunk terms sums on its own and joins acc[r]
 // with one round-to-nearest addition.  Rows at or past m read 0.  Indices
 // are 32-bit (pvot_probe_gemm refuses larger operands): with 64-bit row
 // offsets the one-block gated_gemm_kernel took 220 us instead of 178 and
-// gemm_fma_kernel twice as long on the H100.
+// the first gemm_fma_kernel twice as long on the H100.  gated_gemm_kernel's
+// own loop (the product kernels below stage their operands instead).
 template <int kB>
 __device__ __forceinline__ void fma_rows(const float* __restrict__ a, int lda,
                                          const float* __restrict__ b, int ldb, int m, int r0,
@@ -211,117 +220,557 @@ __device__ __forceinline__ void fma_rows(const float* __restrict__ a, int lda,
   }
 }
 
-// C (m x n) = A B in float32 FMAs.  A block takes 8 rows and 32 columns, a
-// lane a column, a warp one eighth of k; each warp's chunked sums and then
-// the warps' partials add in a fixed order.
-template <int kB>
-__global__ void __launch_bounds__(kThreads)
+// The two product kernels share one plan (pvot_torch/tools/fused_argmax_probe.py
+// `gemm_plan`, which the wrapper passes in with the tiling it assumed, and
+// which must be one of the tilings here): C is cut into tiles of kTm x kTn,
+// and k into `splits` ranges of k_split (a multiple of kGemmStep; the last
+// takes the rest); block split * tiles + tile takes one tile over one
+// range.  A block stages its range in stages of kStageK, by 16-byte
+// cp.async, kStages deep (a row of A or B whose start is not 16-byte aligned
+// takes plain 4- or 2-byte loads instead), and its threads sum their shares
+// of each stage.  With one split the block writes C; with more it writes
+// its float32 tile to the workspace and draws a ticket (an atomic add on the
+// tile's int counter), and the block that draws the last one adds the
+// splits' tiles in split order, each with one round-to-nearest addition,
+// writes C and sets the counter back to 0.  No float atomics: two calls
+// give the same bits.
+constexpr int kGemmStep = 16;  // fused_argmax_probe.GEMM_K_STEP
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rows [r0, r0 + rows) x columns [c0, c0 + cols) of a row-major matrix (rows
+// ld elements apart) into shared memory (rows dpitch apart), zeros at rows
+// >= r_end or columns >= c_end.  vec (src 16-byte aligned, ld, cols and
+// dpitch whole 16 bytes): 16-byte cp.async, neighbouring threads on
+// neighbouring 16 bytes of a row, the bytes past c_end zero-filled; else an
+// element a thread by plain loads and stores.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int dpitch, const T* __restrict__ src, int ld,
+                                           int r0, int rows, int r_end, int c0, int cols,
+                                           int c_end, bool vec) {
+  if (vec) {
+    constexpr int kV = 16 / sizeof(T);
+    const int per_row = cols / kV;
+    for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * kV;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool in = gr < r_end && gc < c_end;
+      cp_async16(dst + r * dpitch + c, in ? src + gr * ld + gc : src,
+                 in ? min(kV, c_end - gc) * static_cast<int>(sizeof(T)) : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      const int gr = r0 + r, gc = c0 + c;
+      dst[r * dpitch + c] = gr < r_end && gc < c_end ? src[gr * ld + gc] : T(0);
+    }
+  }
+}
+
+constexpr int kMaxSmem = 200 * 1024;  // the most dynamic shared memory a launch asks for
+
+// This launch's dynamic shared memory, in floats.
+__device__ __forceinline__ int dyn_smem_floats() {
+  unsigned bytes;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+  return static_cast<int>(bytes / 4);
+}
+
+// The shared memory a launch asks for: its blocks' stage buffers, the
+// block's groups' totals of its tile (`groups` tiles), and room for every
+// split's tile where the last block adds them (up to kMaxSmem; it takes
+// them in batches past that).
+int launch_smem(int stage_bytes, int buffers, int splits, int tile_floats, int groups) {
+  long long need = 1LL * stage_bytes * buffers;
+  need = need > 4LL * groups * tile_floats ? need : 4LL * groups * tile_floats;
+  need = splits > 1 && need < 4LL * splits * tile_floats ? 4LL * splits * tile_floats : need;
+  return static_cast<int>(need < kMaxSmem ? need : kMaxSmem);
+}
+
+// The stage buffers a plan's blocks use: no more than a split's stages (a
+// launch asks for only those, and a one-stage product stays small).
+__host__ __device__ constexpr int stage_buffers(int k_split, int stage_k, int stages) {
+  return (k_split + stage_k - 1) / stage_k < stages ? (k_split + stage_k - 1) / stage_k : stages;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p, int ld, int elem_bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (ld * elem_bytes) % 16 == 0;
+}
+
+// The block's tile of C (kTm x kTn row-major, at rows m0, columns n0) for
+// split `split`: from the groups' totals s_part[w][e] for w < active <=
+// kGroups (added in group order), element e = threadIdx.x + j kThreads in
+// v[j];
+// then as the plan above says.  The ticket is drawn by thread 0 after the
+// block barrier with acquire-release at GPU scope (the release covers the
+// block's partial, the acquire the earlier blocks'), and the last block
+// reads the others' partials from L2 into s_buf (buf_floats, 16-byte
+// aligned; it may overlap s_part).
+template <int kTm, int kTn, int kGroups>
+__device__ void finish_tile(const float* s_part, int active, float* s_buf, int buf_floats,
+                            int* s_last, float* __restrict__ c, int m, int n, int m0, int n0,
+                            int tile, int split, int splits, float* __restrict__ ws,
+                            int* __restrict__ tickets) {
+  constexpr int kT = kTm * kTn, kPer = (kT + kThreads - 1) / kThreads;
+  float v[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = threadIdx.x + j * kThreads;
+    v[j] = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kGroups; ++w) {
+      if (e < kT && w < active) v[j] = __fadd_rn(v[j], s_part[w * kT + e]);
+    }
+  }
+  if (splits > 1) {
+    float* mine = ws + (tile * splits + split) * kT;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (threadIdx.x + j * kThreads < kT) mine[threadIdx.x + j * kThreads] = v[j];
+    }
+    __syncthreads();  // the block's partial is written, and s_part read
+    if (threadIdx.x == 0) {
+      int ticket;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                   : "=r"(ticket)
+                   : "l"(tickets + tile)
+                   : "memory");
+      *s_last = ticket == splits - 1;
+    }
+    __syncthreads();
+    if (!*s_last) return;  // uniform across the block
+    const float* first = ws + tile * splits * kT;
+    const int batch = buf_floats / kT;  // splits staged at once
+    float own[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) own[j] = v[j], v[j] = 0.0f;
+    for (int s0 = 0; s0 < splits; s0 += batch) {
+      const int nb = min(batch, splits - s0);
+      for (int i = threadIdx.x; i < nb * kT / 4; i += kThreads) {
+        if (s0 + 4 * i / kT != split) cp_async16(s_buf + 4 * i, first + s0 * kT + 4 * i, 16);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int e = threadIdx.x + j * kThreads;
+        if (e < kT) {
+#pragma unroll 8
+          for (int s = 0; s < nb; ++s) {
+            v[j] = __fadd_rn(v[j], s0 + s == split ? own[j] : s_buf[s * kT + e]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next launch
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = threadIdx.x + j * kThreads;
+    const int r = e / kTn, col = e % kTn;
+    if (e < kT && m0 + r < m && n0 + col < n) c[(m0 + r) * n + n0 + col] = v[j];
+  }
+}
+
+// The FMA kernel's tilings: a thread sums kRM rows x kRN columns; kRG x kCG
+// threads cover a tile of kTm = kRM kRG rows and kTn = kCG kRN columns, and
+// the block's kKw groups of them split each stage's k, one chunk of kChunk
+// terms a group (the stage is kKw kChunk deep).  A is staged as rows of k,
+// B (k, n) as rows of n, B (n, k) as rows of k (read along k by 16-byte
+// copies, consumed along n: the transpose happens in the shared-memory
+// reads).  Pitches: A and B (n, k) kStageK + 4 floats (a thread's float4
+// along k; the quarter-warp's columns on distinct banks), B (k, n) kTn + 4.
+template <int kB, typename S>
+struct FmaTiling {
+  static constexpr int kRM = S::kRM, kRG = S::kRG, kCG = S::kCG, kRN = S::kRN;
+  static constexpr int kStages = S::kStages;
+  static constexpr int kTm = kRM * kRG, kTn = kCG * kRN, kKw = kThreads / (kRG * kCG);
+  static constexpr int kStageK = kKw * kChunk;
+  static constexpr int kApitch = kStageK + 4;
+  static constexpr int kBrows = kB == kBKN ? kStageK : kTn;
+  static constexpr int kBpitch = kB == kBKN ? kTn + 4 : kStageK + 4;
+  static constexpr int kStageFloats = kTm * kApitch + kBrows * kBpitch;
+  static_assert(kKw * kRG * kCG == kThreads, "a tiling takes every thread");
+};
+// fma: 8 x 16, a thread 2 rows x 1 column, 4 k-groups of a 64-deep stage
+// (a few rows against a long k, or a short one: latency- and load-bound,
+// short chains); fma wide: 16 x 64, a thread 8 x 4, 8 k-groups of 128
+// (FMA-bound: dot_rhs_lane).  3 stages each.  fused_argmax_probe.GEMM_FMA
+// and GEMM_FMA_WIDE name them (tile, k-groups, stage k) to the launch.
+struct FmaSmall {
+  static constexpr int kRM = 2, kRG = 4, kCG = 16, kRN = 1, kStages = 3;
+};
+struct FmaWide {
+  static constexpr int kRM = 8, kRG = 2, kCG = 16, kRN = 4, kStages = 3;
+};
+
+// C = A B in float32 FMAs over one tile and one split (the plan above).
+// A[i, kk] = a[i * lda + kk], so lda below k reads the overlapping row bands
+// of scratch_copy_dot.  Each thread's chunk of kChunk terms sums in FMAs
+// and joins its total with one round-to-nearest addition; the k-groups'
+// totals then add in group order, and the splits' in split order.  Bound:
+// dot_highest and the band products by B's 1 MB (0.33 us), which the
+// split spreads over 256 blocks; dot_rhs_lane by its 71 MFLOP at the FP32
+// rate (1.06 us), for which the wide tiling keeps 8 x 4 sums a thread: a
+// float4 read from shared memory feeds 16 FMAs (A) or 32 (B).
+template <int kB, typename S>
+__global__ void __launch_bounds__(kThreads, 2)
 gemm_fma_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b, int ldb,
-                float* __restrict__ c, int m, int n, int k) {
-  __shared__ float s_part[kWarps][kFmaRows][kFmaCols];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * kFmaRows, j = blockIdx.x * kFmaCols + lane;
-  const int per = (k + kWarps - 1) / kWarps;
-  const int k_lo = warp * per, k_hi = min(k, k_lo + per);
-  float acc[kFmaRows];
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) acc[r] = 0.0f;
-  if (j < n) fma_rows<kB>(a, lda, b, ldb, m, m0, j, k_lo, k_hi, acc);
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) s_part[warp][r][lane] = acc[r];
-  __syncthreads();
-  const int r = threadIdx.x >> 5;  // 8 rows x 32 columns: one output a thread
-  if (m0 + r < m && j < n) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, s_part[w][r][lane]);
-    c[static_cast<long long>(m0 + r) * n + j] = s;
+                float* __restrict__ c, int m, int n, int k, int tiles_n, int tiles, int splits,
+                int k_split, float* __restrict__ ws, int* __restrict__ tickets) {
+  using Tl = FmaTiling<kB, S>;
+  constexpr int kTm = Tl::kTm, kTn = Tl::kTn, kStageK = Tl::kStageK, kStages = Tl::kStages;
+  constexpr int kRM = Tl::kRM, kRG = Tl::kRG, kCG = Tl::kCG, kRN = Tl::kRN;
+  constexpr int kAp = Tl::kApitch, kBp = Tl::kBpitch;
+  extern __shared__ __align__(16) float s_mem[];
+  __shared__ int s_last;
+  const int tile = blockIdx.x % tiles, split = blockIdx.x / tiles;
+  const int m0 = tile / tiles_n * kTm, n0 = tile % tiles_n * kTn;
+  const int k_lo = split * k_split, k_hi = min(k, k_lo + k_split);
+  if (splits == 1 && k <= kChunk) {
+    // One chunk in all (selector_dot's k = 16): nothing to reuse across a
+    // stage, so no staging.  A thread an output, its chunk read into
+    // registers and summed in FMAs, joined to 0 as the staged path's
+    // totals are (a staged launch took 0.4 us more on a 1.7 us probe).
+    for (int e = threadIdx.x; e < kTm * kTn; e += kThreads) {
+      const int i = m0 + e / kTn, j = n0 + e % kTn;
+      if (i >= m || j >= n) continue;
+      float part = 0.0f;
+      for (int kk = 0; kk < k; ++kk) {
+        part = fmaf(a[i * lda + kk], kB == kBKN ? b[kk * ldb + j] : b[j * ldb + kk], part);
+      }
+      c[i * n + j] = __fadd_rn(0.0f, part);
+    }
+    return;
   }
-}
-
-constexpr int kMmaChunk = 8;  // mma steps a fragment sums before it joins the float32 total
-
-// A's hi/lo slot (tiers.cuh split_pack) at (row, col), 0 outside m x k.
-__device__ __forceinline__ uint32_t a_slot(const float* a, long long lda, int m, int k, int row,
-                                           int col) {
-  return row < m && col < k ? split_pack(a[row * lda + col]) : 0u;
-}
-
-// B's hi/lo slot at (row, col), 0 outside k x n.
-template <int kB>
-__device__ __forceinline__ uint32_t b_slot(const void* b, const void* b_lo, int ldb, int k, int n,
-                                           int row, int col) {
-  if (row >= k || col >= n) return 0u;
-  const long long at = static_cast<long long>(row) * ldb + col;
-  if (kB == kBPlanes) {
-    return static_cast<uint32_t>(static_cast<const uint16_t*>(b)[at]) |
-           (static_cast<uint32_t>(static_cast<const uint16_t*>(b_lo)[at]) << 16);
+  const int cg = threadIdx.x % kCG, rg = threadIdx.x / kCG % kRG, kw = threadIdx.x / (kCG * kRG);
+  const bool a_vec = aligned16(a, lda, 4), b_vec = aligned16(b, ldb, 4);
+  const int n_stages = (k_hi - k_lo + kStageK - 1) / kStageK;
+  auto issue = [&](int st) {
+    float* s_a = s_mem + (st % kStages) * Tl::kStageFloats;
+    float* s_b = s_a + kTm * kAp;
+    const int kb = k_lo + st * kStageK;
+    const int kc = min(kStageK, (k_hi - kb + kChunk - 1) / kChunk * kChunk);  // chunks in range
+    stage_tile<float>(s_a, kAp, a, lda, m0, kTm, m, kb, kc, k_hi, a_vec);
+    if constexpr (kB == kBKN) {
+      stage_tile<float>(s_b, kBp, b, ldb, kb, kc, k_hi, n0, kTn, n, b_vec);
+    } else {
+      stage_tile<float>(s_b, kBp, b, ldb, n0, kTn, n, kb, kc, k_hi, b_vec);
+    }
+  };
+  float acc[kRM][kRN];
+#pragma unroll
+  for (int r = 0; r < kRM; ++r) {
+#pragma unroll
+    for (int j = 0; j < kRN; ++j) acc[r][j] = 0.0f;
   }
-  return split_pack(static_cast<const float*>(b)[at]);
-}
-
-// C (m x n) = A B at kPasses bf16 passes (1: hi A hi B; 3: + hi A lo B + lo
-// A hi B) on the tensor cores.  A block takes a 16 x 8 output tile, a warp
-// one eighth of k in steps of 16; a fragment sums kMmaChunk steps and joins
-// the warp's float32 total with one round-to-nearest addition (the tensor
-// core's own sums are not round-to-nearest); the warps' totals add in a
-// fixed order.
-template <int kPasses, int kB>
-__global__ void __launch_bounds__(kThreads)
-gemm_mma_kernel(const float* __restrict__ a, long long lda, const void* __restrict__ b,
-                const void* __restrict__ b_lo, int ldb, float* __restrict__ c, int m, int n,
-                int k) {
-  __shared__ float s_part[kWarps][16][8];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int m0 = blockIdx.y * 16, n0 = blockIdx.x * 8;
-  const int steps = (k + 15) / 16;
-  const int per = (steps + kWarps - 1) / kWarps;
-  const int s_lo = warp * per, s_hi = min(steps, s_lo + per);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int s0 = s_lo; s0 < s_hi; s0 += kMmaChunk) {
-    float frag[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const int s1 = min(s_hi, s0 + kMmaChunk);
-    for (int s = s0; s < s1; ++s) {
-      const int kc = 16 * s + 2 * q;
-      // a0 (row g, k 2q), a1 (row g + 8, k 2q), a2 (row g, k 2q + 8), a3
-      // (row g + 8, k 2q + 8), two k each; b0 (k 2q), b1 (k 2q + 8) at column g.
-      const uint32_t x00 = a_slot(a, lda, m, k, m0 + g, kc), x01 = a_slot(a, lda, m, k, m0 + g, kc + 1);
-      const uint32_t x10 = a_slot(a, lda, m, k, m0 + g + 8, kc),
-                     x11 = a_slot(a, lda, m, k, m0 + g + 8, kc + 1);
-      const uint32_t x20 = a_slot(a, lda, m, k, m0 + g, kc + 8),
-                     x21 = a_slot(a, lda, m, k, m0 + g, kc + 9);
-      const uint32_t x30 = a_slot(a, lda, m, k, m0 + g + 8, kc + 8),
-                     x31 = a_slot(a, lda, m, k, m0 + g + 8, kc + 9);
-      const uint32_t y00 = b_slot<kB>(b, b_lo, ldb, k, n, kc, n0 + g),
-                     y01 = b_slot<kB>(b, b_lo, ldb, k, n, kc + 1, n0 + g);
-      const uint32_t y10 = b_slot<kB>(b, b_lo, ldb, k, n, kc + 8, n0 + g),
-                     y11 = b_slot<kB>(b, b_lo, ldb, k, n, kc + 9, n0 + g);
-      const uint32_t ah0 = hi_pair(x00, x01), ah1 = hi_pair(x10, x11), ah2 = hi_pair(x20, x21),
-                     ah3 = hi_pair(x30, x31);
-      const uint32_t bh0 = hi_pair(y00, y01), bh1 = hi_pair(y10, y11);
-      mma_bf16(frag, ah0, ah1, ah2, ah3, bh0, bh1);  // hi A * hi B
-      if (kPasses == 3) {
-        mma_bf16(frag, ah0, ah1, ah2, ah3, lo_pair(y00, y01), lo_pair(y10, y11));  // hi A * lo B
-        mma_bf16(frag, lo_pair(x00, x01), lo_pair(x10, x11), lo_pair(x20, x21),
-                 lo_pair(x30, x31), bh0, bh1);  // lo A * hi B
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_stages) issue(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage st landed; every thread is done with stage st - 1
+    if (st + kStages - 1 < n_stages) issue(st + kStages - 1);
+    cp_async_commit();
+    if (k_lo + st * kStageK + kw * kChunk >= k_hi) continue;  // the group's chunk: past the range
+    const float* s_a = s_mem + (st % kStages) * Tl::kStageFloats + kRM * rg * kAp + kw * kChunk;
+    const float* s_b = s_mem + (st % kStages) * Tl::kStageFloats + kTm * kAp;
+    float part[kRM][kRN];
+#pragma unroll
+    for (int r = 0; r < kRM; ++r) {
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) part[r][j] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 4) {
+      float bv[4][kRN];  // B at k = kk + t, this thread's columns
+      if constexpr (kB == kBKN) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float* row = s_b + (kw * kChunk + kk + t) * kBp;
+          if constexpr (kRN == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(row + 4 * cg);
+            bv[t][0] = v.x, bv[t][1] = v.y, bv[t][2] = v.z, bv[t][3] = v.w;
+          } else {
+            bv[t][0] = row[cg];
+          }
+        }
+      } else {  // columns cg + j kCG, each a float4 along k
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(s_b + (cg + j * kCG) * kBp + kw * kChunk + kk);
+          bv[0][j] = v.x, bv[1][j] = v.y, bv[2][j] = v.z, bv[3][j] = v.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRM; ++r) {
+        const float4 av = *reinterpret_cast<const float4*>(s_a + r * kAp + kk);
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          part[r][j] = fmaf(av.x, bv[0][j], part[r][j]);
+          part[r][j] = fmaf(av.y, bv[1][j], part[r][j]);
+          part[r][j] = fmaf(av.z, bv[2][j], part[r][j]);
+          part[r][j] = fmaf(av.w, bv[3][j], part[r][j]);
+        }
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);
-  }
-  // c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1).
-  s_part[warp][g][2 * q] = acc[0];
-  s_part[warp][g][2 * q + 1] = acc[1];
-  s_part[warp][g + 8][2 * q] = acc[2];
-  s_part[warp][g + 8][2 * q + 1] = acc[3];
-  __syncthreads();
-  if (threadIdx.x < 128) {
-    const int r = threadIdx.x >> 3, col = threadIdx.x & 7;
-    if (m0 + r < m && n0 + col < n) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, s_part[w][r][col]);
-      c[static_cast<long long>(m0 + r) * n + n0 + col] = s;
+    for (int r = 0; r < kRM; ++r) {
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) acc[r][j] = __fadd_rn(acc[r][j], part[r][j]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free: the groups' totals, then the tile
+  const int active = min(Tl::kKw, (k_hi - k_lo + kChunk - 1) / kChunk);  // groups that summed
+#pragma unroll
+  for (int r = 0; r < kRM; ++r) {
+#pragma unroll
+    for (int j = 0; j < kRN; ++j) {
+      const int col = kB == kBKN ? kRN * cg + j : cg + j * kCG;
+      s_mem[(kw * kTm + kRM * rg + r) * kTn + col] = acc[r][j];
+    }
+  }
+  __syncthreads();
+  finish_tile<kTm, kTn, Tl::kKw>(s_mem, active, s_mem, dyn_smem_floats(), &s_last, c, m, n, m0,
+                                 n0, tile, split, splits, ws, tickets);
+}
+
+// The mma kernel's tiling: a tile of 8 rows (m) x 16 columns (n), computed
+// as its transpose, C^T = B^T A^T, so that n takes the 16-row side of
+// mma.m16n8k16 and the 8 rows of A its n8 side: no padded rows for the
+// probes' m = 8.  Warp w takes k [32 w, 32 w + 32) of each 256-deep stage
+// (two mma steps); 3 stages.  A is staged as rows of k (pitch 264 floats:
+// a lane's float2 (k 2q, 2q + 1) conflict-free), B f32 as rows of n (pitch
+// 20: the lanes' 8 scalars of an operand conflict-free), B's bf16 planes
+// as rows of n (pitch 24: the 8 rows of an ldmatrix on distinct banks).
+constexpr int kMmaTm = 8, kMmaTn = 16, kMmaStageK = kWarps * 32, kMmaStages = 3;
+constexpr int kMmaApitch = kMmaStageK + 8, kMmaBpitch = kMmaTn + 4, kMmaPpitch = kMmaTn + 8;
+constexpr int kMmaChunk = 8;  // mma steps a fragment sums before it joins (GEMM_MMA_CHUNK)
+__host__ __device__ constexpr int mma_stage_bytes(int kB) {
+  return 4 * kMmaTm * kMmaApitch +
+         (kB == kBPlanes ? 2 * 2 * kMmaStageK * kMmaPpitch : 4 * kMmaStageK * kMmaBpitch);
+}
+
+// mma.m16n8k16's A registers (rows n, columns k) from 16 k-rows of a bf16
+// plane staged as rows of n: the four 8 x 8 matrices (k 0-7 | 8-15) x (n
+// 0-7 | 8-15), transposed as loaded.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* plane,
+                                                  int k) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3;
+  const uint16_t* row = plane + (k + (mat >> 1) * 8 + (lane & 7)) * kMmaPpitch + (mat & 1) * 8;
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// C = A B at kPasses bf16 passes (1: hi A hi B; 3: + hi A lo B + lo A hi B)
+// on the tensor cores, over one tile and one split (the plan above).  A's
+// and a float32 B's hi/lo come from tiers.cuh's split_pack as each value
+// leaves shared memory; B's planes come by ldmatrix.  A fragment sums
+// kMmaChunk steps and joins the warp's float32 total with one
+// round-to-nearest addition (the tensor core's own sums are not
+// round-to-nearest); the warps' totals add in warp order, the splits' in
+// split order.  Bound: big_matmul by its 10.5 MB of float32 B (3.3 us at
+// 3.35 TB/s), which the split streams through 264 blocks three stages
+// deep; the bf16 products themselves take nanoseconds of the tensor cores.
+template <int kPasses, int kB>
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_mma_kernel(const float* __restrict__ a, int lda, const void* __restrict__ b,
+                const void* __restrict__ b_lo, int ldb, float* __restrict__ c, int m, int n,
+                int k, int tiles_n, int tiles, int splits, int k_split, float* __restrict__ ws,
+                int* __restrict__ tickets) {
+  constexpr int kStageFloats = mma_stage_bytes(kB) / 4;
+  extern __shared__ __align__(16) float s_mem[];
+  __shared__ int s_last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int tile = blockIdx.x % tiles, split = blockIdx.x / tiles;
+  const int m0 = tile / tiles_n * kMmaTm, n0 = tile % tiles_n * kMmaTn;
+  const int k_lo = split * k_split, k_hi = min(k, k_lo + k_split);
+  const bool a_vec = aligned16(a, lda, 4);
+  const bool b_vec = kB == kBPlanes ? aligned16(b, ldb, 2) && aligned16(b_lo, ldb, 2)
+                                    : aligned16(b, ldb, 4);
+  const int n_stages = (k_hi - k_lo + kMmaStageK - 1) / kMmaStageK;
+  auto issue = [&](int st) {
+    float* s_a = s_mem + (st % kMmaStages) * kStageFloats;
+    const int kb = k_lo + st * kMmaStageK;
+    const int kc = min(kMmaStageK, (k_hi - kb + 15) / 16 * 16);  // the steps in range
+    stage_tile<float>(s_a, kMmaApitch, a, lda, m0, kMmaTm, m, kb, kc, k_hi, a_vec);
+    float* s_b = s_a + kMmaTm * kMmaApitch;
+    if constexpr (kB == kBPlanes) {
+      uint16_t* s_hi = reinterpret_cast<uint16_t*>(s_b);
+      stage_tile<uint16_t>(s_hi, kMmaPpitch, static_cast<const uint16_t*>(b), ldb, kb, kc, k_hi,
+                           n0, kMmaTn, n, b_vec);
+      stage_tile<uint16_t>(s_hi + kMmaStageK * kMmaPpitch, kMmaPpitch,
+                           static_cast<const uint16_t*>(b_lo), ldb, kb, kc, k_hi, n0, kMmaTn, n,
+                           b_vec);
+    } else {
+      stage_tile<float>(s_b, kMmaBpitch, static_cast<const float*>(b), ldb, kb, kc, k_hi, n0,
+                        kMmaTn, n, b_vec);
+    }
+  };
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, frag[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int in_frag = 0;  // mma steps summed in frag
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < n_stages) issue(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // stage st landed; every warp is done with stage st - 1
+    if (st + kMmaStages - 1 < n_stages) issue(st + kMmaStages - 1);
+    cp_async_commit();
+    const float* s_a = s_mem + (st % kMmaStages) * kStageFloats;
+    const float* s_b = s_a + kMmaTm * kMmaApitch;
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+      const int kk = warp * 32 + step * 16;  // the step's first k in the stage
+      if (k_lo + st * kMmaStageK + kk >= k_hi) break;  // uniform across the warp
+      // B operand = A^T (k x 8 rows of A): b0 (k 2q, 2q + 1), b1 (+ 8), row g.
+      const float2 x0 = *reinterpret_cast<const float2*>(s_a + g * kMmaApitch + kk + 2 * q);
+      const float2 x1 = *reinterpret_cast<const float2*>(s_a + g * kMmaApitch + kk + 2 * q + 8);
+      const uint32_t xa = split_pack(x0.x), xb = split_pack(x0.y), xc = split_pack(x1.x),
+                     xd = split_pack(x1.y);
+      const uint32_t ah0 = hi_pair(xa, xb), ah1 = hi_pair(xc, xd);
+      // A operand = B^T (16 columns of B x k): a0 (n g, k 2q, 2q + 1), a1 (n g
+      // + 8), a2 (n g, k + 8), a3 (n g + 8, k + 8).
+      uint32_t bh[4], bl[4];
+      if constexpr (kB == kBPlanes) {
+        const uint16_t* s_hi = reinterpret_cast<const uint16_t*>(s_b);
+        ldmatrix_x4_trans(bh, s_hi, kk);
+        if constexpr (kPasses == 3) ldmatrix_x4_trans(bl, s_hi + kMmaStageK * kMmaPpitch, kk);
+      } else {
+        const float* col = s_b + (kk + 2 * q) * kMmaBpitch + g;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* p = col + (i >> 1) * 8 * kMmaBpitch + (i & 1) * 8;
+          const uint32_t y0 = split_pack(p[0]), y1 = split_pack(p[kMmaBpitch]);
+          bh[i] = hi_pair(y0, y1);
+          bl[i] = lo_pair(y0, y1);
+        }
+      }
+      mma_bf16(frag, bh[0], bh[1], bh[2], bh[3], ah0, ah1);  // hi A * hi B
+      if constexpr (kPasses == 3) {
+        mma_bf16(frag, bl[0], bl[1], bl[2], bl[3], ah0, ah1);  // hi A * lo B
+        mma_bf16(frag, bh[0], bh[1], bh[2], bh[3], lo_pair(xa, xb),
+                 lo_pair(xc, xd));  // lo A * hi B
+      }
+      if (++in_frag == kMmaChunk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], frag[i]), frag[i] = 0.0f;
+        in_frag = 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free: the warps' totals, then the tile
+  // c0 (n g, m 2q), c1 (n g, m 2q + 1), c2 (n g + 8, m 2q), c3 (n g + 8, m 2q + 1).
+  const int active = min(kWarps, (k_hi - k_lo + 31) / 32);  // warps that summed
+  float* mine = s_mem + warp * kMmaTm * kMmaTn;
+  mine[2 * q * kMmaTn + g] = acc[0];
+  mine[(2 * q + 1) * kMmaTn + g] = acc[1];
+  mine[2 * q * kMmaTn + g + 8] = acc[2];
+  mine[(2 * q + 1) * kMmaTn + g + 8] = acc[3];
+  __syncthreads();
+  finish_tile<kMmaTm, kMmaTn, kWarps>(s_mem, active, s_mem, dyn_smem_floats(), &s_last, c, m, n,
+                                      m0, n0, tile, split, splits, ws, tickets);
+}
+
+// Let `kernel` take up to kMaxSmem of dynamic shared memory (above 48 KB a
+// kernel has to ask), once a kernel.
+cudaError_t allow_smem(const void* kernel) {
+  static const void* granted[8];
+  static int n_granted = 0;
+  for (int i = 0; i < n_granted; ++i) {
+    if (granted[i] == kernel) return cudaSuccess;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && n_granted < 8) granted[n_granted++] = kernel;
+  return err;
+}
+
+// The grid of a plan over kTm x kTn tiles, or -1 where the plan does not
+// cover k once (every split non-empty, k_split a multiple of kGemmStep) or
+// its workspace (ws_floats) and tickets (n_tickets) are short.
+long long gemm_blocks(int tm, int tn, int m, int n, int k, int splits, int k_split,
+                      const float* ws, long long ws_floats, const int* tickets, int n_tickets) {
+  const long long tiles = static_cast<long long>((m + tm - 1) / tm) * ((n + tn - 1) / tn);
+  if (splits < 1 || k_split < kGemmStep || k_split % kGemmStep != 0 ||
+      static_cast<long long>(splits - 1) * k_split >= k ||
+      static_cast<long long>(splits) * k_split < k || tiles * splits > INT_MAX) {
+    return -1;
+  }
+  if (splits > 1 && (ws == nullptr || tickets == nullptr || ws_floats > INT_MAX ||
+                     tiles * splits * tm * tn > ws_floats || tiles > n_tickets)) {
+    return -1;
+  }
+  return tiles * splits;
+}
+
+template <int kB, typename S>
+int launch_fma(const float* a, int lda, const float* b, int ldb, float* c, int m, int n, int k,
+               int splits, int k_split, float* ws, long long ws_floats, int* tickets,
+               int n_tickets, cudaStream_t st) {
+  using Tl = FmaTiling<kB, S>;
+  const long long blocks = gemm_blocks(Tl::kTm, Tl::kTn, m, n, k, splits, k_split, ws,
+                                       ws_floats, tickets, n_tickets);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(gemm_fma_kernel<kB, S>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_n = (n + Tl::kTn - 1) / Tl::kTn;
+  const int smem = launch_smem(4 * Tl::kStageFloats,
+                               stage_buffers(k_split, Tl::kStageK, Tl::kStages), splits,
+                               Tl::kTm * Tl::kTn, Tl::kKw);
+  gemm_fma_kernel<kB, S><<<static_cast<int>(blocks), kThreads, smem, st>>>(
+      a, lda, b, ldb, c, m, n, k, tiles_n, static_cast<int>(blocks) / splits, splits, k_split, ws,
+      tickets);
+  return launch_status();
+}
+
+template <int kPasses, int kB>
+int launch_mma(const float* a, int lda, const void* b, const void* b_lo, int ldb, float* c, int m,
+               int n, int k, int splits, int k_split, float* ws, long long ws_floats,
+               int* tickets, int n_tickets, cudaStream_t st) {
+  const int smem = launch_smem(mma_stage_bytes(kB), stage_buffers(k_split, kMmaStageK, kMmaStages),
+                               splits, kMmaTm * kMmaTn, kWarps);
+  const long long blocks = gemm_blocks(kMmaTm, kMmaTn, m, n, k, splits, k_split, ws, ws_floats,
+                                       tickets, n_tickets);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(gemm_mma_kernel<kPasses, kB>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_n = (n + kMmaTn - 1) / kMmaTn;
+  gemm_mma_kernel<kPasses, kB><<<static_cast<int>(blocks), kThreads, smem, st>>>(
+      a, lda, b, b_lo, ldb, c, m, n, k, tiles_n, static_cast<int>(blocks) / splits, splits,
+      k_split, ws, tickets);
+  return launch_status();
+}
+
+// The kernels' tiling whose tile, groups and stage (tm x tn, g groups of a
+// stage of sk k) a plan names, as fused_argmax_probe.GemmTiling: a plan made
+// for another tiling is refused, since the wrapper sizes the workspace and
+// the numpy model of the order of sums by it.
+template <typename Tl>
+bool is_fma_tiling(int tm, int tn, int g, int sk) {
+  return tm == Tl::kTm && tn == Tl::kTn && g == Tl::kKw && sk == Tl::kStageK;
 }
 
 // ---- P4: windows ----------------------------------------------------------
@@ -553,39 +1002,61 @@ int pvot_probe_ew(int op, const void* x, const void* scal, int si, void* out, in
 // P3: c (m x n f32) = A B; A[i, kk] = a[i * lda + kk]; b_kind kBKN: b f32
 // (k x n, rows ldb apart), kBNK: b f32 (n x k), kBPlanes: b and b_lo the
 // bf16 hi and lo planes (k x n, uint16 bits); passes 0 (float32 FMAs; kBKN
-// or kBNK), 1 or 3 (bf16 on the tensor cores; kBKN or kBPlanes).
+// or kBNK; the FMA kernel's small or wide tiling), 1 or 3 (bf16 on the
+// tensor cores; kBKN or, at 3, kBPlanes; the mma kernel's tiling).  The
+// plan (fused_argmax_probe.py gemm_plan): the tiling (tile_m x tile_n,
+// `groups` groups of a stage of stage_k k), `splits` ranges of k_split k;
+// with splits > 1, ws (ws_floats f32) holds the splits' tiles and tickets
+// (n_tickets int32, zero) a counter a tile, which the launch leaves at zero.
+// Returns cudaErrorInvalidValue on what the kernels do not take, else the
+// launch's CUDA error or 0.
 int pvot_probe_gemm(const float* a, long long lda, const void* b, const void* b_lo, int b_kind,
-                    int ldb, float* c, int m, int n, int k, int passes, void* stream) {
-  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+                    int ldb, float* c, int m, int n, int k, int passes, int tile_m, int tile_n,
+                    int groups, int stage_k, int splits, int k_split, float* ws,
+                    long long ws_floats, int* tickets, int n_tickets, void* stream) {
+  const int inval = static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || n < 1 || k < 1 || lda < 1) return inval;
+  // 32-bit indices (fma_rows says why): A's last row, B and C.
+  const long long b_rows = b_kind == kBNK ? n : k, b_cols = b_kind == kBNK ? k : n;
+  if (ldb < b_cols || (m - 1) * lda + k > INT_MAX || (b_rows - 1) * ldb + b_cols > INT_MAX ||
+      static_cast<long long>(m) * n > INT_MAX) {
+    return inval;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ld = static_cast<int>(lda);
   if (passes == 0) {
-    if ((m - 1) * lda + k > INT_MAX || static_cast<long long>(k) * n > INT_MAX) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const dim3 grid((n + kFmaCols - 1) / kFmaCols, (m + kFmaRows - 1) / kFmaRows);
     const float* bf = static_cast<const float*>(b);
-    if (b_kind == kBKN) {
-      gemm_fma_kernel<kBKN><<<grid, kThreads, 0, st>>>(a, static_cast<int>(lda), bf, ldb, c, m,
-                                                       n, k);
-    } else if (b_kind == kBNK) {
-      gemm_fma_kernel<kBNK><<<grid, kThreads, 0, st>>>(a, static_cast<int>(lda), bf, ldb, c, m,
-                                                       n, k);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+    const bool small = is_fma_tiling<FmaTiling<kBKN, FmaSmall>>(tile_m, tile_n, groups, stage_k);
+    const bool wide = is_fma_tiling<FmaTiling<kBKN, FmaWide>>(tile_m, tile_n, groups, stage_k);
+    if (small && b_kind == kBKN) {
+      return launch_fma<kBKN, FmaSmall>(a, ld, bf, ldb, c, m, n, k, splits, k_split, ws,
+                                        ws_floats, tickets, n_tickets, st);
+    } else if (small && b_kind == kBNK) {
+      return launch_fma<kBNK, FmaSmall>(a, ld, bf, ldb, c, m, n, k, splits, k_split, ws,
+                                        ws_floats, tickets, n_tickets, st);
+    } else if (wide && b_kind == kBKN) {
+      return launch_fma<kBKN, FmaWide>(a, ld, bf, ldb, c, m, n, k, splits, k_split, ws,
+                                       ws_floats, tickets, n_tickets, st);
+    } else if (wide && b_kind == kBNK) {
+      return launch_fma<kBNK, FmaWide>(a, ld, bf, ldb, c, m, n, k, splits, k_split, ws,
+                                       ws_floats, tickets, n_tickets, st);
     }
-    return launch_status();
+    return inval;
   }
-  const dim3 grid((n + 7) / 8, (m + 15) / 16);
+  if (tile_m != kMmaTm || tile_n != kMmaTn || groups != kWarps || stage_k != kMmaStageK) {
+    return inval;
+  }
   if (passes == 1 && b_kind == kBKN) {
-    gemm_mma_kernel<1, kBKN><<<grid, kThreads, 0, st>>>(a, lda, b, b_lo, ldb, c, m, n, k);
+    return launch_mma<1, kBKN>(a, ld, b, b_lo, ldb, c, m, n, k, splits, k_split, ws, ws_floats,
+                               tickets, n_tickets, st);
   } else if (passes == 3 && b_kind == kBKN) {
-    gemm_mma_kernel<3, kBKN><<<grid, kThreads, 0, st>>>(a, lda, b, b_lo, ldb, c, m, n, k);
+    return launch_mma<3, kBKN>(a, ld, b, b_lo, ldb, c, m, n, k, splits, k_split, ws, ws_floats,
+                               tickets, n_tickets, st);
   } else if (passes == 3 && b_kind == kBPlanes) {
-    gemm_mma_kernel<3, kBPlanes><<<grid, kThreads, 0, st>>>(a, lda, b, b_lo, ldb, c, m, n, k);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_mma<3, kBPlanes>(a, ld, b, b_lo, ldb, c, m, n, k, splits, k_split, ws,
+                                   ws_floats, tickets, n_tickets, st);
   }
-  return launch_status();
+  return inval;
 }
 
 // P4: see window_kernel; x u8 (x_u8 != 0) or f32, frames fs elements apart

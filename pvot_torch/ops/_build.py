@@ -84,8 +84,10 @@ SIGNATURES = {
     "pvot_probe_tile_reduce": ([_P, _I, _I, _P, _P, _I, _I, _P], ctypes.c_int),
     # op, x, scal, si, out, n, w, stream
     "pvot_probe_ew": ([_I, _P, _P, _I, _P, _I, _I, _P], ctypes.c_int),
-    # a, lda, b, b_lo, b_kind, ldb, c, m, n, k, passes, stream
-    "pvot_probe_gemm": ([_P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+    # a, lda, b, b_lo, b_kind, ldb, c, m, n, k, passes, tile_m, tile_n, groups, stage_k,
+    # splits, k_split, ws, ws_floats, tickets, n_tickets, stream
+    "pvot_probe_gemm": ([_P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _L, _P, _I, _P], ctypes.c_int),
     # x, x_u8, fs, ld, src_h, src_w, off, ru, cu, nb, bstep, nk, kstep, rows, cols, band,
     # out, stream
     "pvot_probe_window": ([_P, _I, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,

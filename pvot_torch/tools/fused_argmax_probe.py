@@ -188,7 +188,8 @@ def elementwise(op: str, x: Optional[torch.Tensor] = None, scal: Optional[torch.
 # ---- P3: products ------------------------------------------------------------
 
 
-def _gemm_shape(a, b, passes, b_lo, transpose_b, rows):
+def gemm_shape(a, b, passes: int = 0, b_lo=None, transpose_b: bool = False,
+               rows: Optional[int] = None) -> tuple:
     """(m, k, n) of a `gemm` call; raises ValueError on what the kernel does
     not take."""
     _need(a, "a", torch.float32, 2)
@@ -216,7 +217,7 @@ def gemm_reference(a, b, passes: int = 0, b_lo=None, transpose_b: bool = False,
                    rows: Optional[int] = None) -> torch.Tensor:
     """Plain version of `gemm`: the tier's exact products summed in float64,
     rounded to float32 once."""
-    m, k, _ = _gemm_shape(a, b, passes, b_lo, transpose_b, rows)
+    m, k, _ = gemm_shape(a, b, passes, b_lo, transpose_b, rows)
     A = a.reshape(-1).as_strided((m, k), (a.shape[1], 1))
     B = b.t() if transpose_b else b
     if passes == 0:
@@ -230,6 +231,124 @@ def gemm_reference(a, b, passes: int = 0, b_lo=None, transpose_b: bool = False,
     return out.to(torch.float32)
 
 
+# The product kernels' plan (csrc/argmax_probe.cu P3): C in tiles, k in
+# splits, one block a tile and split.  The tilings and the order of sums are
+# held here; the launch passes the tiling and the kernels refuse one that is
+# not their own, and tests/test_torch_gemm_plan.py models the order from
+# these and holds the constants that are not passed to the source.
+
+
+@dataclass(frozen=True)
+class GemmTiling:
+    """A product kernel's tiling: tiles of C of tile_m x tile_n, and the
+    block's `groups` (the mma kernel's warps, the FMA kernel's k-groups),
+    each taking stage_k / groups k of every stage of stage_k; a group sums
+    its share in order, then the block adds the groups in order."""
+
+    tile_m: int
+    tile_n: int
+    groups: int
+    stage_k: int
+
+
+GEMM_MMA = GemmTiling(8, 16, 8, 256)        # bf16 passes; a warp takes 2 mma steps a stage
+GEMM_FMA = GemmTiling(8, 16, 4, 64)         # float32; a group takes one chunk a stage
+GEMM_FMA_WIDE = GemmTiling(16, 64, 8, 128)  # float32 where the small tiles fill the card twice
+GEMM_K_STEP = 16        # k of an mma step and of a chunk of FMAs; a split's k is a multiple
+GEMM_MMA_CHUNK = 8      # mma steps a fragment sums before it joins its warp's float32 total
+GEMM_ONE_SPLIT_K = 512  # k up to this takes one split: no workspace, no reduction
+GEMM_MIN_SPLIT_K = 64   # the least k a split takes
+GEMM_SMS = 132          # the H100's SMs: the blocks a plan aims to reach
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One launch of a product kernel: `tiles` tiles of C and `splits`
+    ranges of k_split k (the last takes the rest), a block each; with more
+    than one split, each block writes its tile to a workspace and the last
+    of a tile's blocks adds them in split order."""
+
+    tiling: GemmTiling
+    tiles: int
+    splits: int
+    k_split: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def ws_floats(self) -> int:
+        t = self.tiling
+        return self.blocks * t.tile_m * t.tile_n if self.splits > 1 else 0
+
+    def k_ranges(self, k: int) -> list:
+        return [(s * self.k_split, min(k, (s + 1) * self.k_split)) for s in range(self.splits)]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan(m: int, n: int, k: int, passes: int, sms: int = GEMM_SMS) -> GemmPlan:
+    """The plan of `gemm` for C (m x n) = A (m x k) B: bf16 passes take the
+    mma kernel; float32 takes the FMA kernel, wide where its small tiles
+    would fill the card twice over.  Fewer tiles than SMs and k past
+    GEMM_ONE_SPLIT_K: k splits into up to 2 sms blocks, two an SM (the
+    kernels fit two, and `sms` would leave a tile count that does not divide
+    it with some SMs running two blocks and most one)."""
+    if passes:
+        tiling = GEMM_MMA
+    else:
+        small = _ceil_div(m, GEMM_FMA.tile_m) * _ceil_div(n, GEMM_FMA.tile_n)
+        tiling = GEMM_FMA_WIDE if small >= 2 * sms else GEMM_FMA
+    tiles = _ceil_div(m, tiling.tile_m) * _ceil_div(n, tiling.tile_n)
+    splits, k_split = 1, _ceil_div(k, GEMM_K_STEP) * GEMM_K_STEP
+    if tiles < sms and k > GEMM_ONE_SPLIT_K:
+        want = 2 * sms // tiles  # two blocks an SM, as many on every SM
+        k_split = max(GEMM_MIN_SPLIT_K, _ceil_div(_ceil_div(k, want), GEMM_K_STEP) * GEMM_K_STEP)
+        splits = _ceil_div(k, k_split)
+    return GemmPlan(tiling, tiles, splits, k_split)
+
+
+_GEMM_SCRATCH: dict = {}
+
+
+def _gemm_scratch(dev: torch.device, stream: int, plan: GemmPlan):
+    """(workspace, tickets) for `plan` on `stream`: made once per device and
+    stream (torch.empty, torch.zeros) and grown as needed; the kernel leaves
+    every ticket at zero, and the launches of one stream run in order."""
+    ws, tickets = _GEMM_SCRATCH.get((dev, stream), (None, None))
+    if ws is None or ws.numel() < plan.ws_floats:
+        ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < plan.tiles:
+        tickets = torch.zeros(plan.tiles, dtype=torch.int32, device=dev)
+    _GEMM_SCRATCH[(dev, stream)] = ws, tickets
+    return ws, tickets
+
+
+def gemm_c_args(a: torch.Tensor, b: torch.Tensor, passes: int = 0,
+                b_lo: Optional[torch.Tensor] = None, transpose_b: bool = False,
+                rows: Optional[int] = None) -> tuple:
+    """(C, the arguments of pvot_probe_gemm before the stream) for `gemm` on
+    the card: its plan, the output C it writes, and the workspace of the
+    current stream.  The arguments point into the operands and C: keep them
+    alive while the arguments are used."""
+    m, k, n = gemm_shape(a, b, passes, b_lo, transpose_b, rows)
+    dev = a.device
+    plan = gemm_plan(m, n, k, passes, torch.cuda.get_device_properties(dev).multi_processor_count)
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
+    kind = 2 if b_lo is not None else 1 if transpose_b else 0
+    ws, tickets = None, None
+    if plan.splits > 1:
+        ws, tickets = _gemm_scratch(dev, torch.cuda.current_stream(dev).cuda_stream, plan)
+    t = plan.tiling
+    return c, (a.data_ptr(), a.shape[1], b.data_ptr(), _ptr(b_lo), kind, b.shape[1],
+               c.data_ptr(), m, n, k, passes, t.tile_m, t.tile_n, t.groups, t.stage_k,
+               plan.splits, plan.k_split, _ptr(ws), 0 if ws is None else ws.numel(),
+               _ptr(tickets), 0 if tickets is None else tickets.numel())
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, passes: int = 0, b_lo: Optional[torch.Tensor] = None,
          transpose_b: bool = False, rows: Optional[int] = None) -> torch.Tensor:
     """C = A B, (m, n) float32: passes 0 float32 FMAs (HIGHEST), 1 one bf16
@@ -238,14 +357,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, passes: int = 0, b_lo: Optional[torch
     a (m, k) float32, or with `rows` the m = rows overlapping rows A[i, kk] =
     a.flat[i * a.shape[1] + kk] (the concatenated row bands of T5's
     scratch_copy_dot); b (k, n) float32, (n, k) with transpose_b, or the
-    bf16 hi plane with b_lo the lo plane (3 passes)."""
-    m, k, n = _gemm_shape(a, b, passes, b_lo, transpose_b, rows)
+    bf16 hi plane with b_lo the lo plane (3 passes).  On the card one
+    launch (`gemm_plan`), into a workspace kept per device and stream."""
     if a.device.type == "cpu":
         return gemm_reference(a, b, passes, b_lo, transpose_b, rows)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    kind = 2 if b_lo is not None else 1 if transpose_b else 0
-    _launch(gemm, "pvot_probe_gemm", a.device, a.data_ptr(), a.shape[1], b.data_ptr(),
-            _ptr(b_lo), kind, b.shape[1], c.data_ptr(), m, n, k, passes)
+    c, args = gemm_c_args(a, b, passes, b_lo, transpose_b, rows)
+    _launch(gemm, "pvot_probe_gemm", a.device, *args)
     return c
 
 
@@ -564,11 +681,20 @@ class Case:
     compare: Optional[Callable] = None  # (got, ref) -> largest difference; raises
     launches: int = 1              # kernel launches a call
     cuda_kernels: tuple = ()       # their names (default: the wrapper's `cuda_kernels`)
+    product: Optional[Callable] = None  # (*tensors) -> gemm's arguments, for a product probe
 
     def args(self, device) -> tuple:
         dtypes = self.dtypes or (None,) * len(self.operands)
         return tuple(torch.from_numpy(np.ascontiguousarray(o)).to(device=device, dtype=d)
                      for o, d in zip(self.operands, dtypes))
+
+
+def gemm_case(operands: tuple, product: Callable, check: Callable, **kw) -> Case:
+    """A probe of `gemm`: `product` maps its tensors to gemm's arguments
+    (a, b, passes, b_lo, transpose_b, rows); the kernel and the plain version
+    are gemm and gemm_reference on them."""
+    return Case(gemm, operands, lambda *t: gemm(*product(*t)),
+                lambda *t: gemm_reference(*product(*t)), check, product=product, **kw)
 
 
 def _tuple(out) -> tuple:
@@ -654,8 +780,10 @@ def case_bound(case: Case, outputs) -> tuple:
     from pvot_torch.bench import BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S
 
     read = case.read_bytes
-    if read is None:
-        read = sum(o.nbytes for o in case.operands)
+    if read is None:  # each operand at the dtype the call takes it in
+        dtypes = case.dtypes or (None,) * len(case.operands)
+        read = sum(o.size * (o.itemsize if d is None else torch.empty(0, dtype=d).element_size())
+                   for o, d in zip(case.operands, dtypes))
     n_bytes = read + sum(o.numel() * o.element_size() for o in _tuple(outputs))
     t_ops = case.flops * case.passes / BF16_FLOPS if case.passes else case.flops / FP32_FLOPS
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -876,22 +1004,95 @@ def case_dot_high_emul() -> Case:
         want = a.astype(np.float64) @ b.astype(np.float64)
         return _at_most(_max_abs(out[0], want) / float(np.max(np.abs(want))), 1e-4, "rel")
 
-    return Case(gemm, (a, bh, bl), lambda a, bh, bl: gemm(a, bh, 3, b_lo=bl),
-                lambda a, bh, bl: gemm_reference(a, bh, 3, b_lo=bl), check, tol=1e-5,
-                dtypes=(torch.float32, torch.bfloat16, torch.bfloat16),
-                library=lambda a, b: torch.matmul(a, b),
-                library_args=lambda a, bh, bl: (a, (bh.float() + bl.float()).contiguous()),
-                flops=2.0 * 128 * 256 * 128, passes=3)
+    return gemm_case((a, bh, bl), lambda a, bh, bl: (a, bh, 3, bl), check, tol=1e-5,
+                     dtypes=(torch.float32, torch.bfloat16, torch.bfloat16),
+                     library=lambda a, b: torch.matmul(a, b),
+                     library_args=lambda a, bh, bl: (a, (bh.float() + bl.float()).contiguous()),
+                     flops=2.0 * 128 * 256 * 128, passes=3)
 
 
 def case_dot_rhs_lane() -> Case:
     rng = np.random.default_rng(4)
     a = rng.random((136, 256), np.float32)
     b = rng.random((1024, 256), np.float32)
-    return Case(gemm, (a, b), lambda a, b: gemm(a, b, transpose_b=True),
-                lambda a, b: gemm_reference(a, b, transpose_b=True),
-                lambda out: _at_most(_max_abs(out[0], _prod(a, b.T)), 1e-4, "err"), tol=1e-6,
-                library=lambda a, b: torch.matmul(a, b.t()), flops=2.0 * 136 * 1024 * 256)
+    return gemm_case((a, b), lambda a, b: (a, b, 0, None, True),
+                     lambda out: _at_most(_max_abs(out[0], _prod(a, b.T)), 1e-4, "err"),
+                     tol=1e-6, library=lambda a, b: torch.matmul(a, b.t()),
+                     flops=2.0 * 136 * 1024 * 256)
+
+
+# The product kernels' edge shapes (no JAX probe of their own): k not a
+# multiple of the split or of 16, m = 136, n not a multiple of 8 or 32, rows
+# whose start is not 16-byte aligned (lda or n not a multiple of 4, planes
+# of n not a multiple of 8: the kernels' element-by-element path), the
+# overlapping row bands of lda < k, B as (n, k) and as bf16 planes.  Each
+# is (m, k, n, passes, B's form, lda of the band rows or None).
+GEMM_EDGES = {
+    "k_ragged_f32": (8, 3001, 128, 0, "kn", None),
+    "k_ragged_1pass": (8, 3001, 128, 1, "kn", None),
+    "k_ragged_3pass": (8, 3001, 120, 3, "kn", None),
+    "n_odd_f32": (8, 2048, 99, 0, "kn", None),
+    "n_odd_3pass": (8, 2048, 99, 3, "kn", None),
+    "m136_nk": (136, 256, 1001, 0, "nk", None),
+    "m136_kn_odd": (136, 300, 1001, 0, "kn", None),
+    "m136_3pass": (136, 520, 40, 3, "kn", None),
+    "band_f32": (24, 800, 128, 0, "kn", 100),
+    "band_unaligned": (16, 700, 72, 0, "kn", 99),
+    "band_1pass": (16, 900, 64, 1, "kn", 102),
+    "planes": (24, 520, 72, 3, "planes", None),
+    "planes_odd": (13, 264, 70, 3, "planes", None),
+}
+# The edge shapes' own check against the exact product, relative to its
+# largest value: a bf16 pass keeps 8 bits (T5 matmul's 3e-3), three keep
+# about 16 (dot_high's 1e-4), float32 24 (dot_highest's 1e-5).
+GEMM_EDGE_RTOL = {0: 1e-5, 1: 3e-3, 3: 1e-4}
+
+
+def gemm_edge_operands(name: str) -> tuple:
+    """(a, b) or (a, b_hi, b_lo) of an edge shape as numpy (uniform in [0,
+    1), as the probes' operands; a's rows `lda` apart for band rows; b (n,
+    k) for "nk"; the planes as float32 values of bf16)."""
+    m, k, n, passes, form, lda = GEMM_EDGES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if lda is None:
+        a = rng.random((m, k), np.float32)
+    else:
+        a = rng.random((_ceil_div((m - 1) * lda + k, lda), lda), np.float32)
+    b = rng.random((k, n), np.float32)
+    if form == "nk":
+        return a, np.ascontiguousarray(b.T)
+    if form == "planes":
+        return (a, *(v.numpy() for v in split_bf16(torch.from_numpy(b))))
+    return a, b
+
+
+def case_gemm_edge(name: str) -> Case:
+    """An edge shape of the product kernels as a probe: held to the exact
+    product within GEMM_EDGE_RTOL, and to the plain version within 1e-6
+    (float32) or 1e-5 (bf16 passes) of its largest value."""
+    m, k, n, passes, form, lda = GEMM_EDGES[name]
+    ops = gemm_edge_operands(name)
+    rows = None if lda is None else m
+    if form == "planes":
+        product = lambda a, bh, bl: (a, bh, passes, bl, False, rows)  # noqa: E731
+        dtypes = (torch.float32, torch.bfloat16, torch.bfloat16)
+        want_b = ops[1].astype(np.float64) + ops[2].astype(np.float64)
+    else:
+        product = lambda a, b: (a, b, passes, None, form == "nk", rows)  # noqa: E731
+        dtypes = ()
+        want_b = (ops[1].T if form == "nk" else ops[1]).astype(np.float64)
+    A = np.lib.stride_tricks.as_strided(ops[0].reshape(-1), (m, k), (4 * ops[0].shape[1], 4))
+    want = A.astype(np.float64) @ want_b
+
+    def check(out):
+        return _at_most(_max_abs(out[0], want) / float(np.max(np.abs(want))),
+                        GEMM_EDGE_RTOL[passes], "rel")
+
+    return gemm_case(ops, product, check, tol=1e-5 if passes else 1e-6, dtypes=dtypes,
+                     flops=2.0 * m * n * k, passes=passes)
+
+
+GEMM_EDGE_PROBES = [(name, (lambda name=name: case_gemm_edge(name))) for name in GEMM_EDGES]
 
 
 def case_scratch_carry() -> Case:
@@ -1132,6 +1333,20 @@ def time_case(case: Case, device, repeats: int = 200) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
+def library_device_us(case: Case, device) -> Optional[float]:
+    """The library call's device us a call by the graph route (CUDA events
+    around replays of a CUDA graph of its calls, no profiler session); None
+    where the probe has none."""
+    from pvot_torch.tools.region_step_breakdown import graph_us
+
+    if case.library is None:
+        return None
+    args = case.args(device)
+    largs = case.library_args(*args) if case.library_args else args
+    with full_f32(torch.device(device)):
+        return graph_us(lambda stream: case.library(*largs))
+
+
 def run_catalogue(probes: Sequence, argv, prog: str) -> int:
     """The entry point of a catalogue: each probe (or those named) on the
     device, PASS or FAIL a probe, on the card each kernel's device us a
@@ -1163,8 +1378,11 @@ def run_catalogue(probes: Sequence, argv, prog: str) -> int:
                   f"{res['max_abs_err']:.3g}", flush=True)
             if device.type == "cuda":
                 t = times[name] = time_case(case, device)
+                t["library_device_us"] = library_device_us(case, device)
                 dev_us = "not measured" if t["device_us"] is None else f"{t['device_us']:.3f} us"
-                print(f"     {t['us']:.3f} us a call, its kernels {dev_us} on the device",
+                lib = ("" if t["library_device_us"] is None else
+                       f"; the library call {t['library_device_us']:.3f} us (graph route)")
+                print(f"     {t['us']:.3f} us a call, its kernels {dev_us} on the device{lib}",
                       flush=True)
         except Exception as e:  # report every probe, then fail
             results[name] = False

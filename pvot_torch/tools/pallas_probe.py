@@ -36,7 +36,7 @@ import torch
 
 from pvot_torch.tools.fused_argmax_probe import (
     K5_KERNEL, Case, _allclose, _at_most, _launch, _max_abs, _need, _prod, elementwise,
-    elementwise_reference, gemm, gemm_reference, run_catalogue, window, window_reference,
+    elementwise_reference, gemm, gemm_case, run_catalogue, window, window_reference,
 )
 
 TX = 128  # tools/pallas_probe.py:494
@@ -147,11 +147,10 @@ def _product_case(a, b, passes: int, rtol: float, rows=None, want=None) -> Case:
             return a.to(torch.bfloat16), b.to(torch.bfloat16)
         return a.reshape(-1).as_strided((m, k), (a.shape[1], 1)), b
 
-    return Case(gemm, (a, b), lambda a, b: gemm(a, b, passes, rows=rows),
-                lambda a, b: gemm_reference(a, b, passes, rows=rows),
-                lambda out: _allclose(out[0], want, rtol), tol=1e-5 if passes else 1e-6,
-                library=torch.matmul, library_args=library_args, flops=2.0 * m * n * k,
-                passes=passes)
+    return gemm_case((a, b), lambda a, b: (a, b, passes, None, False, rows),
+                     lambda out: _allclose(out[0], want, rtol), tol=1e-5 if passes else 1e-6,
+                     library=torch.matmul, library_args=library_args, flops=2.0 * m * n * k,
+                     passes=passes)
 
 
 def case_matmul() -> Case:
@@ -278,10 +277,10 @@ def case_selector_dot() -> Case:
     sel = np.zeros((8, 16), np.float32)
     for ty in range(8):
         sel[ty, ty + SELECTOR_SHIFT] = 1.0  # shift-by-3 selector
-    return Case(gemm, (x, sel), lambda x, sel: gemm(sel, x), lambda x, sel: gemm_reference(sel, x),
-                lambda out: _allclose(out[0], x[3:11], 1e-6), tol=1e-6,
-                library=lambda x, sel: torch.matmul(sel, x),
-                flops=2.0 * 128 * np.count_nonzero(sel))  # the selector's ones
+    return gemm_case((x, sel), lambda x, sel: (sel, x),
+                     lambda out: _allclose(out[0], x[3:11], 1e-6), tol=1e-6,
+                     library=lambda x, sel: torch.matmul(sel, x),
+                     flops=2.0 * 128 * np.count_nonzero(sel))  # the selector's ones
 
 
 def new_ncc_mini_operands():

@@ -190,3 +190,11 @@ def cuda_device():
 def test_cuda_kernels_match_their_plain_versions(cuda_device):
     for name, make in fap.PROBES:
         fap.run_case(name, make(), cuda_device)
+    # The product kernels' edge shapes: one launch a call, two calls bit-equal.
+    for name, make in fap.GEMM_EDGE_PROBES:
+        case = make()
+        args = case.args(cuda_device)
+        fap.run_case(name, case, cuda_device)
+        before = fap.gemm.launches
+        assert torch.equal(case.call(*args), case.call(*args)), name
+        assert fap.gemm.launches == before + 2, name

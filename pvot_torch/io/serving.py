@@ -80,6 +80,7 @@ from pvot_torch.tracker.mega import (
     _rows_to_output, bucket_extents, mega_chunk_step_multi, mega_chunk_step_objects,
 )
 from pvot_torch.tracker.state import StepOutput, TrackerState
+from pvot_torch.utils import timing
 
 
 class _StreamFeed:
@@ -375,6 +376,7 @@ class _Slot:
         self.copied = torch.cuda.Event() if cuda else None
         self.done = torch.cuda.Event() if cuda else None
         self.n_real: Optional[np.ndarray] = None
+        self.unit = None  # the span unit of the chunk it holds
 
     def wait(self) -> None:
         """Until the kernels that read this slot and its records' copy are done."""
@@ -387,74 +389,90 @@ def _serve_mega(frame_iters, states, frame_shape, lane_feed: np.ndarray, step,
     """The serving loop over N feeds and L lanes: lane l tracks feed
     lane_feed[l]; step(frames (N, C, H, W) on the device, state, n_real (N,))
     runs one chunk and returns (rows (L, C, 10), the next state).  Returns
-    (final state, L lists' host StepOutputs, each of its feed's length)."""
+    (final state, L lists' host StepOutputs, each of its feed's length).
+
+    Spans (pvot_torch.utils.timing.span): the call is `pvot.serve`; chunk k
+    is the unit (call, k) of `pvot.serve.fill` (its frames from the feeds),
+    `pvot.serve.copy` (the copy's enqueue), `pvot.serve.step` (the chunk
+    and its records' copy enqueued) and, `depth` chunks later,
+    `pvot.serve.drain` (`pvot.serve.wait` for the card, then
+    `pvot.records`); the `timings` hook runs after the drain's span."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    n_streams = len(frame_iters)
-    n_lanes = len(lane_feed)
-    cuda = device.type == "cuda"
-    if cuda:
-        copy_stream = torch.cuda.Stream(device)
-        compute = torch.cuda.Stream(device)
-        compute.wait_stream(torch.cuda.current_stream(device))  # the states' producers
-        on_compute = torch.cuda.stream(compute)
-    else:
-        on_compute = contextlib.nullcontext()
-    slots = [_Slot((n_streams, chunk_size, *frame_shape), (n_lanes, chunk_size, N_LANES),
-                   device) for _ in range(depth + 1)]
-    feeds: List[_StreamFeed] = []
-    outs: List[list] = [[] for _ in range(n_lanes)]
-    inflight: deque = deque()
-    fillers = ThreadPoolExecutor(max_workers=n_streams)
-    mark = time.perf_counter()
+    call = timing.new_unit()
+    with timing.span("pvot.serve", unit=call, lanes=len(lane_feed)):
+        n_streams = len(frame_iters)
+        n_lanes = len(lane_feed)
+        cuda = device.type == "cuda"
+        if cuda:
+            copy_stream = torch.cuda.Stream(device)
+            compute = torch.cuda.Stream(device)
+            compute.wait_stream(torch.cuda.current_stream(device))  # the states' producers
+            on_compute = torch.cuda.stream(compute)
+        else:
+            on_compute = contextlib.nullcontext()
+        slots = [_Slot((n_streams, chunk_size, *frame_shape), (n_lanes, chunk_size, N_LANES),
+                       device) for _ in range(depth + 1)]
+        feeds: List[_StreamFeed] = []
+        outs: List[list] = [[] for _ in range(n_lanes)]
+        inflight: deque = deque()
+        fillers = ThreadPoolExecutor(max_workers=n_streams)
+        mark = time.perf_counter()
 
-    def drain(slot: _Slot) -> None:
-        nonlocal mark
-        slot.wait()
-        host = slot.rows.numpy()
-        for lane, n in enumerate(slot.n_real[lane_feed].tolist()):
-            if n:
-                outs[lane].append(_rows_to_output(host[lane, :n]))
-        mark = _time_chunk(timings, int(slot.n_real.sum()), mark)
+        def drain(slot: _Slot) -> None:
+            nonlocal mark
+            with timing.span("pvot.serve.drain", unit=slot.unit):
+                with timing.span("pvot.serve.wait"):
+                    slot.wait()
+                with timing.span("pvot.records"):
+                    host = slot.rows.numpy()
+                    for lane, n in enumerate(slot.n_real[lane_feed].tolist()):
+                        if n:
+                            outs[lane].append(_rows_to_output(host[lane, :n]))
+            mark = _time_chunk(timings, int(slot.n_real.sum()), mark)
 
-    try:
-        with on_compute:
-            st = states.to(device)
-        feeds.extend(_StreamFeed(it, frame_shape, chunk_size) for it in frame_iters)
-        k = 0
-        while True:
-            slot = slots[k % len(slots)]
-            slot.wait()  # its earlier chunk was drained: this returns at once
-            host = slot.host.numpy()
-            n_real = np.array(list(fillers.map(lambda s: feeds[s].next_chunk(host[s]),
-                                               range(n_streams))), np.int32)
-            if not n_real.any():
-                break
-            slot.n_real = n_real
-            if cuda:
-                with torch.cuda.stream(copy_stream):
-                    slot.frames.copy_(slot.host, non_blocking=True)
-                    slot.copied.record()
-                compute.wait_event(slot.copied)
+        try:
             with on_compute:
-                rows, st = step(slot.frames, st, n_real)
-                slot.rows.copy_(rows, non_blocking=cuda)
-                if cuda:
-                    slot.done.record()
-            inflight.append(slot)
-            k += 1
-            if len(inflight) >= depth:
+                st = states.to(device)
+            feeds.extend(_StreamFeed(it, frame_shape, chunk_size) for it in frame_iters)
+            k = 0
+            while True:
+                slot = slots[k % len(slots)]
+                slot.wait()  # its earlier chunk was drained: this returns at once
+                host = slot.host.numpy()
+                unit = (call, k)
+                with timing.span("pvot.serve.fill", unit=unit):
+                    n_real = np.array(list(fillers.map(lambda s: feeds[s].next_chunk(host[s]),
+                                                       range(n_streams))), np.int32)
+                if not n_real.any():
+                    break
+                slot.n_real, slot.unit = n_real, unit
+                with timing.span("pvot.serve.copy", unit=unit):
+                    if cuda:
+                        with torch.cuda.stream(copy_stream):
+                            slot.frames.copy_(slot.host, non_blocking=True)
+                            slot.copied.record()
+                        compute.wait_event(slot.copied)
+                with timing.span("pvot.serve.step", unit=unit, frames=int(n_real.max()),
+                                 lanes=n_lanes), on_compute:
+                    rows, st = step(slot.frames, st, n_real)
+                    slot.rows.copy_(rows, non_blocking=cuda)
+                    if cuda:
+                        slot.done.record()
+                inflight.append(slot)
+                k += 1
+                if len(inflight) >= depth:
+                    drain(inflight.popleft())
+            while inflight:
                 drain(inflight.popleft())
-        while inflight:
-            drain(inflight.popleft())
-    finally:
-        fillers.shutdown()
-        for f in feeds:
-            f.close()
-    if cuda:
-        torch.cuda.current_stream(device).wait_stream(compute)
-    return st, [_concat_outputs(o) for o in outs]
+        finally:
+            fillers.shutdown()
+            for f in feeds:
+                f.close()
+        if cuda:
+            torch.cuda.current_stream(device).wait_stream(compute)
+        return st, [_concat_outputs(o) for o in outs]
 
 
 def serve_streams_grouped(

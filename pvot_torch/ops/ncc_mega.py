@@ -29,6 +29,10 @@ They return (rows, final templates): the per-frame records in fields O_*
 (pvot/ops/ncc_mega.py:78-81; O_POISON is always 0), (F, 10) or (S, F, 10)
 float32, and the templates after the chunk's EMA updates, (th, tw) or
 (S, th, tw) float32.
+
+Each call is one `pvot.chunk` span (pvot_torch.utils.timing.span): the
+checks, the state's packing, the buffers, the grid query, the C call and
+the counters on the card, or the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from pvot_torch.ops import search as search_ops
 from pvot_torch.ops.ncc_reference import ncc_scores, score_tier
 from pvot_torch.tracker.state import is_bbox_outside_frame
 from pvot_torch.tracker.step import f32
+from pvot_torch.utils import timing
 
 (
     O_BX, O_BY, O_BW, O_BH, O_SCORE, O_UPDATED, O_POISON, O_LOST, O_USEG,
@@ -491,33 +496,34 @@ def mega_track_chunk(
     1, and so does `mega_track_chunk.launches_by_tier[p]` for the tier's pass
     count p (0: float32).  On the CPU: the plain version.  Frames past
     `n_valid` commit nothing."""
-    passes = score_tier(highest, score_passes)
-    batch = check_batch(batch)
-    if frames_u8.device.type == "cpu":
-        return mega_track_chunk_reference(
-            frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
-            n_valid, config, highest, score_passes, batch,
-        )
-    _check_cuda_inputs(frames_u8, 3, dict(
-        bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
-        lost_count=lost_count, use_global=use_global))
-    frames_u8 = frames_u8.contiguous()
-    f, h, w = frames_u8.shape
-    th, tw = template.shape
-    MegaGeometry((h, w), (th, tw), config).check()
-    from pvot_torch.ops import _build
+    with timing.span("pvot.chunk"):
+        passes = score_tier(highest, score_passes)
+        batch = check_batch(batch)
+        if frames_u8.device.type == "cpu":
+            return mega_track_chunk_reference(
+                frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
+                n_valid, config, highest, score_passes, batch,
+            )
+        _check_cuda_inputs(frames_u8, 3, dict(
+            bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
+            lost_count=lost_count, use_global=use_global))
+        frames_u8 = frames_u8.contiguous()
+        f, h, w = frames_u8.shape
+        th, tw = template.shape
+        MegaGeometry((h, w), (th, tw), config).check()
+        from pvot_torch.ops import _build
 
-    lib = _build.load_library()
-    dev = frames_u8.device
-    with torch.cuda.device(dev):
-        out = _launch(
-            lib, "one", frames_u8[None], bbox, template, t_mean, t_std, lost_count,
-            use_global, [int(n_valid)], config, torch.cuda.current_stream(dev).cuda_stream,
-            passes=passes, batch=batch,
-        )
-        _build.check(out.err, "mega_track_chunk")
-        _count(mega_track_chunk, chunk_launches(f, batch), passes)
-    return out.rows[0], out.template[0, :, :tw].contiguous()
+        lib = _build.load_library()
+        dev = frames_u8.device
+        with torch.cuda.device(dev):
+            out = _launch(
+                lib, "one", frames_u8[None], bbox, template, t_mean, t_std, lost_count,
+                use_global, [int(n_valid)], config, torch.cuda.current_stream(dev).cuda_stream,
+                passes=passes, batch=batch,
+            )
+            _build.check(out.err, "mega_track_chunk")
+            _count(mega_track_chunk, chunk_launches(f, batch), passes)
+        return out.rows[0], out.template[0, :, :tw].contiguous()
 
 
 def _count(wrapper, n: int, passes: int) -> None:
@@ -561,36 +567,37 @@ def mega_track_chunk_multi(
     `mega_track_chunk_multi` grow as K1's do.  At every frame step each block
     grid-strides over all streams' tiles, so a stream in re-acquisition gets
     the whole card.  On the CPU: the plain version."""
-    passes = score_tier(highest, score_passes)
-    batch = check_batch(batch)
-    if frames_u8.device.type == "cpu":
-        return mega_track_chunk_multi_reference(
-            frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
-            n_valid, config, highest, score_passes, batch,
-        )
-    _check_cuda_inputs(frames_u8, 4, dict(
-        bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
-        lost_count=lost_count, use_global=use_global))
-    s, f, h, w = frames_u8.shape
-    if frames_u8.stride()[1:] != (h * w, w, 1):
-        frames_u8 = frames_u8.contiguous()
-    th, tw = template.shape[-2:]
-    if template.shape[0] != s or bbox.shape != (s, 4):
-        raise ValueError(f"states for {template.shape[0]} streams, frames for {s}")
-    MegaGeometry((h, w), (th, tw), config).check(s)
-    from pvot_torch.ops import _build
+    with timing.span("pvot.chunk"):
+        passes = score_tier(highest, score_passes)
+        batch = check_batch(batch)
+        if frames_u8.device.type == "cpu":
+            return mega_track_chunk_multi_reference(
+                frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
+                n_valid, config, highest, score_passes, batch,
+            )
+        _check_cuda_inputs(frames_u8, 4, dict(
+            bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
+            lost_count=lost_count, use_global=use_global))
+        s, f, h, w = frames_u8.shape
+        if frames_u8.stride()[1:] != (h * w, w, 1):
+            frames_u8 = frames_u8.contiguous()
+        th, tw = template.shape[-2:]
+        if template.shape[0] != s or bbox.shape != (s, 4):
+            raise ValueError(f"states for {template.shape[0]} streams, frames for {s}")
+        MegaGeometry((h, w), (th, tw), config).check(s)
+        from pvot_torch.ops import _build
 
-    lib = _build.load_library()
-    dev = frames_u8.device
-    with torch.cuda.device(dev):
-        out = _launch(
-            lib, "multi", frames_u8, bbox, template, t_mean, t_std, lost_count,
-            use_global, n_valid, config, torch.cuda.current_stream(dev).cuda_stream,
-            passes=passes, batch=batch,
-        )
-        _build.check(out.err, "mega_track_chunk_multi")
-        _count(mega_track_chunk_multi, chunk_launches(f, batch), passes)
-    return out.rows, out.template[:, :, :tw].contiguous()
+        lib = _build.load_library()
+        dev = frames_u8.device
+        with torch.cuda.device(dev):
+            out = _launch(
+                lib, "multi", frames_u8, bbox, template, t_mean, t_std, lost_count,
+                use_global, n_valid, config, torch.cuda.current_stream(dev).cuda_stream,
+                passes=passes, batch=batch,
+            )
+            _build.check(out.err, "mega_track_chunk_multi")
+            _count(mega_track_chunk_multi, chunk_launches(f, batch), passes)
+        return out.rows, out.template[:, :, :tw].contiguous()
 
 
 reset_launches(mega_track_chunk_multi)
@@ -625,44 +632,45 @@ def mega_track_chunk_objects(
     (`chunk_launches`), no host synchronisation; the counters of
     `mega_track_chunk_objects` grow as K1's do.  On the CPU: the plain
     version."""
-    passes = score_tier(highest, score_passes)
-    batch = check_batch(batch)
-    extents = object_extents(template, bucket_extents)
-    if frames_u8.device.type == "cpu":
-        return mega_track_chunk_objects_reference(
-            frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
-            n_valid, config, bucket_extents, highest, score_passes, batch,
-        )
-    _check_cuda_inputs(frames_u8, 3, dict(
-        bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
-        lost_count=lost_count, use_global=use_global))
-    frames_u8 = frames_u8.contiguous()
-    f, h, w = frames_u8.shape
-    k = len(extents)
-    if bbox.shape != (k, 4):
-        raise ValueError(f"bbox {tuple(bbox.shape)} for {k} objects")
-    # The kernel's buffer is the smallest bucket that holds every object; a
-    # set whose objects all share one extent runs without an extent table.
-    bh, bw = max(e[0] for e in extents), max(e[1] for e in extents)
-    MegaGeometry((h, w), (bh, bw), config).check(k)
-    from pvot_torch.ops import _build
+    with timing.span("pvot.chunk"):
+        passes = score_tier(highest, score_passes)
+        batch = check_batch(batch)
+        extents = object_extents(template, bucket_extents)
+        if frames_u8.device.type == "cpu":
+            return mega_track_chunk_objects_reference(
+                frames_u8, bbox, template, t_mean, t_std, lost_count, use_global,
+                n_valid, config, bucket_extents, highest, score_passes, batch,
+            )
+        _check_cuda_inputs(frames_u8, 3, dict(
+            bbox=bbox, template=template, t_mean=t_mean, t_std=t_std,
+            lost_count=lost_count, use_global=use_global))
+        frames_u8 = frames_u8.contiguous()
+        f, h, w = frames_u8.shape
+        k = len(extents)
+        if bbox.shape != (k, 4):
+            raise ValueError(f"bbox {tuple(bbox.shape)} for {k} objects")
+        # The kernel's buffer is the smallest bucket that holds every object; a
+        # set whose objects all share one extent runs without an extent table.
+        bh, bw = max(e[0] for e in extents), max(e[1] for e in extents)
+        MegaGeometry((h, w), (bh, bw), config).check(k)
+        from pvot_torch.ops import _build
 
-    lib = _build.load_library()
-    dev = frames_u8.device
-    with torch.cuda.device(dev):
-        out = _launch(
-            lib, "objects", frames_u8.expand(k, f, h, w), bbox, template[:, :bh, :bw],
-            t_mean, t_std, lost_count, use_global, n_valid, config,
-            torch.cuda.current_stream(dev).cuda_stream, extents=extents,
-            passes=passes, batch=batch,
-        )
-        _build.check(out.err, "mega_track_chunk_objects")
-        _count(mega_track_chunk_objects, chunk_launches(f, batch), passes)
-    if (bh, bw) == tuple(template.shape[-2:]):
-        return out.rows, out.template[:, :, :bw].contiguous()
-    full = template.to(torch.float32).clone()
-    full[:, :bh, :bw] = out.template[:, :, :bw]
-    return out.rows, full
+        lib = _build.load_library()
+        dev = frames_u8.device
+        with torch.cuda.device(dev):
+            out = _launch(
+                lib, "objects", frames_u8.expand(k, f, h, w), bbox, template[:, :bh, :bw],
+                t_mean, t_std, lost_count, use_global, n_valid, config,
+                torch.cuda.current_stream(dev).cuda_stream, extents=extents,
+                passes=passes, batch=batch,
+            )
+            _build.check(out.err, "mega_track_chunk_objects")
+            _count(mega_track_chunk_objects, chunk_launches(f, batch), passes)
+        if (bh, bw) == tuple(template.shape[-2:]):
+            return out.rows, out.template[:, :, :bw].contiguous()
+        full = template.to(torch.float32).clone()
+        full[:, :bh, :bw] = out.template[:, :, :bw]
+        return out.rows, full
 
 
 reset_launches(mega_track_chunk_objects)

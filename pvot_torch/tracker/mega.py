@@ -21,6 +21,12 @@ cadence in the kernels (pvot/tracker/mega.py:526-589): chunks are cut on
 batch boundaries, and the records equal pvot.tracker.scan.
 track_video_batched's, leftover tail included; any batch >= 1 runs there,
 where JAX sends a batch that is not a power of two to that fallback.
+
+Spans (pvot_torch.utils.timing.span): each call of the three drivers is one
+unit, `pvot.track` from the checked inputs to the records; inside it each
+chunk's `pvot.chunk` (ops/ncc_mega.py) and `pvot.restack` (the chunk-final
+state and its template stats), then `pvot.read` (the records' one copy to
+the host, which waits for the card) and `pvot.records` (their conversion).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from pvot_torch.ops.ncc_reference import score_tier
 from pvot_torch.ops.ncc_reference import template_stats, template_stats_bucketed
 from pvot_torch.tracker.state import StepOutput, TrackerState
 from pvot_torch.tracker.step import host_read
+from pvot_torch.utils import timing
 
 
 def _state_from_chunk(rows: torch.Tensor, tplout: torch.Tensor,
@@ -48,20 +55,21 @@ def _state_from_chunk(rows: torch.Tensor, tplout: torch.Tensor,
     stacked state.  bucketed: the templates sit zero-padded in a shared
     bucket, and their stats are over each one's true pixels, bbox_w x bbox_h
     (pvot/tracker/mega.py:216 `_state_from_chunk_bucketed`)."""
-    last = rows[..., -1, :]
+    with timing.span("pvot.restack"):
+        last = rows[..., -1, :]
 
-    def i32(lane):
-        return last[..., lane].to(torch.int32)
+        def i32(lane):
+            return last[..., lane].to(torch.int32)
 
-    if bucketed:
-        t_mean, t_std = template_stats_bucketed(tplout, i32(O_BW) * i32(O_BH))
-    else:
-        t_mean, t_std = template_stats(tplout)
-    return TrackerState(
-        bbox_x=i32(O_BX), bbox_y=i32(O_BY), bbox_w=i32(O_BW), bbox_h=i32(O_BH),
-        template=tplout, t_mean=t_mean, t_std=t_std, lost_count=i32(O_LOST),
-        use_global=last[..., O_USEG] != 0.0,
-    )
+        if bucketed:
+            t_mean, t_std = template_stats_bucketed(tplout, i32(O_BW) * i32(O_BH))
+        else:
+            t_mean, t_std = template_stats(tplout)
+        return TrackerState(
+            bbox_x=i32(O_BX), bbox_y=i32(O_BY), bbox_w=i32(O_BW), bbox_h=i32(O_BH),
+            template=tplout, t_mean=t_mean, t_std=t_std, lost_count=i32(O_LOST),
+            use_global=last[..., O_USEG] != 0.0,
+        )
 
 
 def _rows_to_output(rows: np.ndarray) -> StepOutput:
@@ -106,16 +114,20 @@ def track_video_mega(
         raise ValueError(f"expected (F, H, W) uint8 frames, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
     cs = _chunk_length(chunk_size, batch)
-    cur = state.to(device)
-    all_rows = []
-    for start in range(0, frames.shape[0], cs):
-        chunk = frames[start : start + cs]
-        rows, cur = mega_chunk_step(chunk, cur, chunk.shape[0], config, highest, score_passes,
-                                    batch)
-        all_rows.append(rows)
-    if not all_rows:
-        return cur, _rows_to_output(np.zeros((0, 10), np.float32))
-    return cur, _rows_to_output(host_read(torch.cat(all_rows)).numpy())
+    with timing.span("pvot.track", unit=timing.new_unit(), frames=frames.shape[0], lanes=1):
+        cur = state.to(device)
+        all_rows = []
+        for start in range(0, frames.shape[0], cs):
+            chunk = frames[start : start + cs]
+            rows, cur = mega_chunk_step(chunk, cur, chunk.shape[0], config, highest,
+                                        score_passes, batch)
+            all_rows.append(rows)
+        if not all_rows:
+            return cur, _rows_to_output(np.zeros((0, 10), np.float32))
+        with timing.span("pvot.read"):
+            host = host_read(torch.cat(all_rows)).numpy()
+        with timing.span("pvot.records"):
+            return cur, _rows_to_output(host)
 
 
 def mega_chunk_step(
@@ -191,17 +203,20 @@ def track_streams_mega(
     s, f = videos.shape[:2]
     if int(states.t_mean.shape[0]) != s:
         raise ValueError(f"{s} videos for {int(states.t_mean.shape[0])} states")
-    cur = states.to(device)
-    all_rows = []
-    for start in range(0, f, cs):
-        chunk = videos[:, start : start + cs]
-        rows, cur = mega_chunk_step_multi(chunk, cur, chunk.shape[1], config, highest,
-                                          score_passes, batch)
-        all_rows.append(rows)
-    if not all_rows:
-        return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
-    host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (S, F, 10)
-    return cur, _rows_to_output(host.transpose(1, 0, 2))
+    with timing.span("pvot.track", unit=timing.new_unit(), frames=f, lanes=s):
+        cur = states.to(device)
+        all_rows = []
+        for start in range(0, f, cs):
+            chunk = videos[:, start : start + cs]
+            rows, cur = mega_chunk_step_multi(chunk, cur, chunk.shape[1], config, highest,
+                                              score_passes, batch)
+            all_rows.append(rows)
+        if not all_rows:
+            return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
+        with timing.span("pvot.read"):
+            host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (S, F, 10)
+        with timing.span("pvot.records"):
+            return cur, _rows_to_output(host.transpose(1, 0, 2))
 
 
 def bucket_extents(states: TrackerState) -> Optional[Tuple[Tuple[int, int], ...]]:
@@ -268,15 +283,18 @@ def track_objects_mega(
         raise ValueError(f"expected (F, H, W) uint8 frames, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
     k = int(states.t_mean.shape[0])
-    cur = states.to(device)
-    extents = bucket_extents(cur)
-    all_rows = []
-    for start in range(0, frames.shape[0], chunk_size):
-        chunk = frames[start : start + chunk_size]
-        rows, cur = mega_chunk_step_objects(chunk, cur, chunk.shape[0], config, extents,
-                                            highest, score_passes)
-        all_rows.append(rows)
-    if not all_rows:
-        return cur, _rows_to_output(np.zeros((0, k, 10), np.float32))
-    host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (K, F, 10)
-    return cur, _rows_to_output(host.transpose(1, 0, 2))
+    with timing.span("pvot.track", unit=timing.new_unit(), frames=frames.shape[0], lanes=k):
+        cur = states.to(device)
+        extents = bucket_extents(cur)
+        all_rows = []
+        for start in range(0, frames.shape[0], chunk_size):
+            chunk = frames[start : start + chunk_size]
+            rows, cur = mega_chunk_step_objects(chunk, cur, chunk.shape[0], config, extents,
+                                                highest, score_passes)
+            all_rows.append(rows)
+        if not all_rows:
+            return cur, _rows_to_output(np.zeros((0, k, 10), np.float32))
+        with timing.span("pvot.read"):
+            host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (K, F, 10)
+        with timing.span("pvot.records"):
+            return cur, _rows_to_output(host.transpose(1, 0, 2))

@@ -339,8 +339,9 @@ def stacked_args(states):
 def kernel_label(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name, e.g.
     chunk_kernel<1,0,6> (kOne, kExt, kStage) or ncc_kernel<h,1,0>."""
-    m = re.search(r"\d([a-z][a-z_]*?_kernel(?:_tier|_rows)?)(?:I((?:L[bi]\d+E|[a-z])+)E)?E",
-                  mangled)
+    m = re.search(
+        r"\d([a-z][a-z_]*?_kernel(?:_tier|_rows|_resident)?)(?:I((?:L[bi]\d+E|[a-z])+)E)?E",
+        mangled)
     if not m:
         return mangled
     args = [a or b for a, b in re.findall(r"L[bi](\d+)E|([a-z])", m.group(2) or "")]
@@ -1474,7 +1475,7 @@ def main(argv=None) -> int:
     from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_video, target_bbox
     from pvot_torch.ops import _build
     from pvot_torch.ops.ncc_mega import (
-        MegaGeometry, chunk_launches, mega_track_chunk, mega_track_chunk_multi,
+        PLANS, MegaGeometry, chunk_launches, mega_track_chunk, mega_track_chunk_multi,
         mega_track_chunk_multi_reference, mega_track_chunk_objects,
         mega_track_chunk_objects_reference, mega_track_chunk_reference, reset_launches,
     )
@@ -1613,6 +1614,23 @@ def main(argv=None) -> int:
         if lib.pvot_mega_stage_rows(th, tw, lanes) != mirror:
             raise AssertionError(f"stage_rows({th}, {tw}, {lanes}): kernel "
                                  f"{lib.pvot_mega_stage_rows(th, tw, lanes)}, wrapper {mirror}")
+    # ... and its plan (whole, resident or chunked, with the bytes) the
+    # kernel's plan_of, at float32 and at a bf16 tier.
+    plans = []
+    for th, tw, lanes in ((80, 80, 1), (80, 80, 8), (143, 143, 256), (160, 160, 1), (160, 160, 8),
+                          (161, 160, 4), (176, 176, 3), (176, 256, 1), (176, 256, 200),
+                          (256, 256, 1), (256, 256, 64)):
+        for passes in (0, 1):
+            smem = ctypes.c_int(0)
+            kplan = lib.pvot_mega_plan(th, tw, lanes, passes, ctypes.byref(smem))
+            mirror = MegaGeometry((1080, 1920), (th, tw), TrackerConfig()).plan(lanes, passes)
+            if (PLANS[kplan], smem.value) != (mirror.name, mirror.smem_bytes):
+                raise AssertionError(f"plan({th}, {tw}, {lanes}, {passes}): kernel "
+                                     f"{kplan} {smem.value}, wrapper {mirror}")
+            if passes == 0:
+                plans.append(f"{th}x{tw} at {lanes}: {mirror.name} {mirror.smem_bytes}")
+    print("  chunk kernel plans, float32, bytes (kernel = wrapper; bf16 tiers too): "
+          + "; ".join(plans))
 
     # Phase 3.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1680,8 +1698,11 @@ def main(argv=None) -> int:
     bconfig = TrackerConfig(search_radius_x=160, search_radius_y=160, lost_frame_threshold=2)
     bstate = state_at(bspec, bframes, 0, dev)
     bargs = chunk_args(torch.from_numpy(bframes[1:]).to(dev), bstate, bconfig)
+    resident_before = mega_track_chunk.launches_by_plan["resident"]
     got = mega_track_chunk(*bargs)
-    k1_err = max(k1_err, compare("K1 parity 1080p/160/r160", got,
+    if mega_track_chunk.launches_by_plan["resident"] != resident_before + 1:
+        raise AssertionError("K1 at 1080p/160/r160 did not launch the resident plan")
+    k1_err = max(k1_err, compare("K1 parity 1080p/160/r160 (resident plan)", got,
                                  mega_track_chunk_reference(*bargs), 160 * 160))
     bglob = chunk_args(bargs[0][:2], bstate._replace(use_global=torch.tensor(True, device=dev)),
                        bconfig)
@@ -1764,6 +1785,8 @@ def main(argv=None) -> int:
         raise AssertionError("176x256 staging plan is not halves at 1 stream, smaller at 200")
     cargs = chunk_args(torch.from_numpy(cframes[1:]).to(dev), state_at(cspec, cframes, 0, dev),
                        cconfig)
+    chunked_before = (mega_track_chunk.launches_by_plan["chunked"],
+                      mega_track_chunk_multi.launches_by_plan["chunked"])
     k1 = mega_track_chunk(*cargs)
     many = [v.expand(200, *v.shape).contiguous() for v in cargs[1:7]]
     got = mega_track_chunk_multi(cargs[0].expand(200, *cargs[0].shape), *many, [3] * 200,
@@ -1771,6 +1794,11 @@ def main(argv=None) -> int:
     if not (torch.equal(got[0], k1[0].expand_as(got[0]))
             and torch.equal(got[1], k1[1].expand_as(got[1]))):
         raise AssertionError("K2 with 176x256 in chunks of a quarter differs from K1 in halves")
+    # Neither fits the resident plan (tests/test_torch_multi.py's bytes).
+    if (mega_track_chunk.launches_by_plan["chunked"],
+            mega_track_chunk_multi.launches_by_plan["chunked"]) != tuple(
+                c + 1 for c in chunked_before):
+        raise AssertionError("the 176x256 launches did not run the chunked plan")
     print(f"K2 176x256, 200 streams staged in chunks of {cgeom.stage_rows(200)} rows: "
           f"bit-equal to K1 staged in halves ({int(k1[0][:, 5].sum())} of 3 frames accepted)")
 
@@ -1874,6 +1902,65 @@ def main(argv=None) -> int:
           f"{MegaGeometry(xclip.shape[1:], (176, 176), config).stage_rows(3)} rows: each object "
           f"bit-equal to K1 alone at its true extent; ms per step over {xf} steps (one object "
           f"global on {int(xrows[2, :, 9].sum())}): kernel {k3_x_ms:.5f}, bound {k3_x_bound:.5f}")
+    # The objects cell's shape (1080p, 160x160, r160, all local) in the
+    # resident plan: K = 8 objects, and a bucket of odd extents that still
+    # runs it (161x157 sets the bucket; 157, 64, 27, 31 and 35 columns leave
+    # 0, 1, 2, 3 and 4 groups of 4 taps past the micro-tile loop's groups of
+    # 5):
+    # each object bit-equal to K1 alone, the contract against the plain
+    # version, every launch resident; then serve_objects at the cell's
+    # chunk of 16, every launch resident.
+    rconfig = TrackerConfig(search_radius_x=160, search_radius_y=160)
+    rrng = np.random.default_rng(17)
+    rbase = rrng.integers(0, 256, (1080 + 16, 1920 + 16), np.uint8)
+    rclip = np.stack([rbase[f : f + 1080, f : f + 1920] for f in range(13)])
+    rg0 = gray_u8_to_f32(rclip[0])
+    rspots = [(200 + 420 * (i % 4), 150 + 560 * (i // 4)) for i in range(8)]
+    rchunk = torch.from_numpy(rclip[1:]).to(dev)
+    rf = rchunk.shape[0]
+    k3_cell_ms = k3_cell_bound = None
+    for label, rext in (("K=8 160x160", [(160, 160)] * 8),
+                        ("bucket 161x157 (161x157, 100x64, 33x27, 45x31, 50x35)",
+                         [(161, 157), (100, 64), (33, 27), (45, 31), (50, 35)])):
+        bucketed = len(set(rext)) > 1
+        rrois = [(x, y, w, h) for (x, y), (h, w) in zip(rspots, rext)]
+        rst = (init_multi_state_bucketed if bucketed else init_multi_state)(
+            [rg0[y : y + h, x : x + w] for x, y, w, h in rrois], rrois, device=dev)
+        rargs = (rchunk, torch.stack(list(rst.bbox), dim=-1), rst.template, rst.t_mean,
+                 rst.t_std, rst.lost_count, rst.use_global, rf, rconfig)
+        bucket = rext if bucketed else None
+        before = dict(mega_track_chunk_objects.launches_by_plan)
+        got = mega_track_chunk_objects(*rargs, bucket_extents=bucket)
+        if mega_track_chunk_objects.launches_by_plan != {**before,
+                                                         "resident": before["resident"] + 1}:
+            raise AssertionError(f"K3 {label}: the launch was not the resident plan")
+        want = mega_track_chunk_objects_reference(*rargs, bucket_extents=bucket)
+        k3_err = max(k3_err, compare(f"K3 parity 1080p/r160 {label}, resident plan", got, want,
+                                     max(h * w for h, w in rext)))
+        for i, (eh, ew) in enumerate(rext):
+            one = [a[i] for a in rargs[1:7]]
+            one[1] = one[1][:eh, :ew].contiguous()
+            k1 = mega_track_chunk(rchunk, *one, rf, rconfig)
+            if not (torch.equal(k1[0], got[0][i]) and torch.equal(k1[1], got[1][i, :eh, :ew])):
+                raise AssertionError(f"K3 {label}: object {i} differs from K1 on it alone")
+        if not bucketed:
+            rrows = got[0].cpu().numpy()
+            k3_cell_ms = time_ms(lambda: mega_track_chunk_objects(*rargs), 5) / rf
+            k3_cell_bound = chunk_bound([(rargs[1][i].tolist(), rrows[i], rf, rclip.shape[1:],
+                                          (160, 160), rconfig) for i in range(8)], rf,
+                                        shared_frame=True)[0]
+        print(f"K3 1080p/r160 {label}, resident plan: each object bit-equal to K1 alone"
+              + (f"; ms per step {k3_cell_ms:.5f}, bound {k3_cell_bound:.5f}" if not bucketed
+                 else ""))
+    reset_counts()
+    _, rserved = serve_objects(iter(rclip[1:]), init_multi_state(
+        [rg0[y : y + 160, x : x + 160] for x, y in rspots], [(x, y, 160, 160) for x, y in rspots],
+        device=dev), rclip.shape[1:], rconfig, chunk_size=16)
+    if mega_track_chunk_objects.launches_by_plan != {"whole": 0, "resident": 1, "chunked": 0}:
+        raise AssertionError(f"serve_objects at the cell's shape: launches by plan "
+                             f"{mega_track_chunk_objects.launches_by_plan}")
+    print(f"serve_objects, 8 objects 1080p/160/r160, chunk 16: launches by plan "
+          f"{mega_track_chunk_objects.launches_by_plan}")
     lchunk = torch.from_numpy(frames[1 : of + 1]).to(dev)
     l8 = stack_states([state] * 8)
     l8args = (lchunk, torch.stack(list(l8.bbox), dim=-1), l8.template, l8.t_mean, l8.t_std,
@@ -3019,6 +3106,8 @@ def main(argv=None) -> int:
             "k4_bucketed_bound_ms_per_step": k4_bound["bucketed"],
             "k3_1080p_bucket176_chunked_ms_per_step": k3_x_ms,
             "k3_1080p_bucket176_chunked_bound_ms_per_step": k3_x_bound,
+            "k3_1080p_160_k8_resident_ms_per_step": k3_cell_ms,
+            "k3_1080p_160_k8_resident_bound_ms_per_step": k3_cell_bound,
             "k8_one_global_ms_per_step": k3_g8_ms,
             "serve_objects_fps": n_serve / serve_o_s,
             "device_path_fps": dev_fps,

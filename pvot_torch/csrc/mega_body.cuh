@@ -38,8 +38,9 @@
 //              window's standard deviation over the item's rows (a half of
 //              them when two blocks share the tile) and the score with acc = 0;
 //   kScore     the sum over the window of |score|.
-// The ladder is instantiated only for K1's main-path case (kWhole, kOne, no
-// kExt, batch 1).
+// The ladder is instantiated for K1's main-path case (kWhole, kOne, no kExt,
+// batch 1) and for its float32 row-chunk case in the resident plan
+// (chunk_kernel_resident).
 
 #pragma once
 
@@ -142,6 +143,76 @@ int stage_rows(int th, int tw, int n_lanes) {
     if (score_smem_bytes(ck, tw, n_lanes) <= kSmemLimit) return ck;
   }
   return -1;
+}
+
+// Words a row of a patch tw bytes wide takes in fetch_issue's buffer.
+__host__ __device__ constexpr int patch_words(int tw) { return (tw + 6) / 4; }
+
+// The plans of a launch's shared memory (plan_of), each its own kernel.
+// Whole: the template staged whole beside an 8 x 16 tile's input rows
+// (chunk_kernel, chunk_kernel_tier<true, ...>).  Resident, at float32 where
+// the template does not stage whole (chunk_kernel_resident): each lane's
+// centered template staged once a step when a block first meets the lane
+// and kept for the block's run of its items, which are 32 x 16 tiles whose
+// window rows come in one template half at a time (the next half's bytes
+// loaded into registers while the current one's sums are added).  Chunked,
+// where neither fits (chunk_kernel_rows, chunk_kernel_tier<false, ...>):
+// template and window rows staged in chunks of stage_rows rows of an 8 x 16
+// tile.  The sums of an output run in one order in every plan.
+constexpr int kPlanWhole = 0, kPlanResident = 1, kPlanChunked = 2;
+constexpr int kResTileH = 32;                  // the resident plan's tile: 32 x kTileW
+static_assert(kResTileH * kTileW == kThreads, "the resident plan's outputs are one a thread");
+static_assert(kResTileH == 32, "a warp's lanes are the resident plan's tile rows");
+constexpr int kResPartStride = kTileW + 4;     // a tile row of share partials (no bank twice)
+constexpr int kResPart = kResTileH * kResPartStride;  // one share's partials
+constexpr int kPreSlots = 3;                   // 16-column groups of the next half a thread holds
+
+// The resident plan's window row stride: room for kTileW outputs and tw4
+// taps, an odd multiple of 4 floats modulo 32 banks, so that the float4
+// reads of 8 consecutive rows by a quarter warp meet no bank twice.
+__host__ __device__ constexpr int res_in_stride(int tw4) {
+  return (kTileW + tw4) % 8 == 0 ? kTileW + tw4 + 4 : kTileW + tw4;
+}
+
+// Window rows of the resident plan's longer template half.
+__host__ __device__ constexpr int res_in_rows(int th) { return th - th / 2 + kResTileH - 1; }
+
+// Floats of the resident plan after the template: the window rows, their
+// row sums and sums of squares, and the partials of half the shares (the
+// shares' partials are added in two rounds of 8).
+__host__ __device__ constexpr int res_work_floats(int th, int tw) {
+  return res_in_rows(th) * res_in_stride(round_up4(tw)) + 2 * res_in_rows(th) * kTileW +
+         kSplit / 2 * kResPart;
+}
+
+// Dynamic shared memory of the resident plan, in bytes (pvot_torch/ops/
+// ncc_mega.py plan mirrors it): the lane table, the whole centered
+// template, then res_work_floats.
+__host__ __device__ constexpr int resident_smem_bytes(int th, int tw, int n_lanes) {
+  return lane_table_bytes(n_lanes) +
+         static_cast<int>(sizeof(float)) * (th * round_up4(tw) + res_work_floats(th, tw));
+}
+
+// The plan of a launch: whole when the template stages whole; else resident
+// for the float32 tier (passes 0) when the whole template, the longer
+// half's window rows and the rest fit, the EMA's patch bytes fit where the
+// window rows go, and the half's 16-column groups fit kPreSlots a thread;
+// else chunked (-1: not even chunks fit).
+int plan_of(int th, int tw, int n_lanes, int passes) {
+  const int rows = stage_rows(th, tw, n_lanes);
+  if (rows < 1) return -1;
+  if (rows == th) return kPlanWhole;
+  const int groups = res_in_rows(th) * ((kTileW + round_up4(tw) + 15) / 16);
+  const bool fits = resident_smem_bytes(th, tw, n_lanes) <= kSmemLimit &&
+                    th * patch_words(tw) <= res_work_floats(th, tw) &&
+                    groups <= kPreSlots * kThreads;
+  return passes == 0 && fits ? kPlanResident : kPlanChunked;
+}
+
+// Dynamic shared memory of a plan's launch, in bytes.
+int plan_smem_bytes(int plan, int th, int tw, int n_lanes) {
+  return plan == kPlanResident ? resident_smem_bytes(th, tw, n_lanes)
+                               : score_smem_bytes(stage_rows(th, tw, n_lanes), tw, n_lanes);
 }
 
 struct Params {
@@ -539,9 +610,6 @@ __device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
-// Words a row of a patch tw bytes wide takes in fetch_issue's buffer.
-__device__ __forceinline__ int patch_words(int tw) { return (tw + 6) / 4; }
-
 // A whole lane's template, rows x tw4 floats from src (global memory, read
 // through L2; null: already on its way), into s_tc as it is, and with
 // `patch` (the EMA's frame rows at the winner, frame_w apart) its rows x tw
@@ -764,6 +832,195 @@ __device__ uint32_t load_window(float* s_in, const uint8_t* frame, const Params&
   return kStore ? 0u : chk;
 }
 
+// The resident plan's window loads, cut in two so that the next half's
+// bytes travel while the current half is scored: res_fetch loads this
+// thread's 16-column groups of load_window's rows and columns (at most
+// kPreSlots of them; plan_of sees to it) into registers, and res_store
+// converts and stores them as load_window does.
+struct Pending {
+  uint4 a[kPreSlots], b[kPreSlots];
+};
+
+__device__ __forceinline__ void res_fetch(Pending& q, const uint8_t* frame, const Params& p,
+                                          int gy0, int ox0, int in_rows, int in_wl) {
+  const int nv = (in_wl + 15) >> 4;
+  const int w_lim = min(p.frame_w - ox0, in_wl);
+#pragma unroll
+  for (int s = 0; s < kPreSlots; ++s) {
+    const int idx = static_cast<int>(threadIdx.x) + s * kThreads;
+    q.a[s] = make_uint4(0u, 0u, 0u, 0u);
+    q.b[s] = make_uint4(0u, 0u, 0u, 0u);
+    if (idx >= in_rows * nv) continue;
+    const int r = idx / nv, c0 = 16 * (idx - r * nv);
+    const int gy = gy0 + r;
+    const int lim = gy < p.frame_h ? w_lim : 0;
+    if (c0 < lim) {
+      const uint8_t* at = frame + static_cast<size_t>(gy) * p.frame_w + ox0 + c0;
+      const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(at) & 15);
+      const uint4* vp = reinterpret_cast<const uint4*>(at - mis);
+      q.a[s] = __ldg(vp);
+      if (mis != 0 && c0 + 16 - mis < lim) q.b[s] = __ldg(vp + 1);
+    }
+  }
+}
+
+__device__ __forceinline__ void res_store(const Pending& q, float* s_in, const uint8_t* frame,
+                                          const Params& p, int gy0, int ox0, int in_rows,
+                                          int in_wl, int in_w) {
+  const int nv = (in_wl + 15) >> 4;
+  const int w_lim = min(p.frame_w - ox0, in_wl);
+#pragma unroll
+  for (int s = 0; s < kPreSlots; ++s) {
+    const int idx = static_cast<int>(threadIdx.x) + s * kThreads;
+    if (idx >= in_rows * nv) continue;
+    const int r = idx / nv, c0 = 16 * (idx - r * nv);
+    const int gy = gy0 + r;
+    const int lim = gy < p.frame_h ? w_lim : 0;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (c0 < lim) {
+      const uint8_t* at = frame + static_cast<size_t>(gy) * p.frame_w + ox0 + c0;
+      const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(at) & 15);
+      const uint32_t v[8] = {q.a[s].x, q.a[s].y, q.a[s].z, q.a[s].w,
+                             q.b[s].x, q.b[s].y, q.b[s].z, q.b[s].w};
+      const int m = mis >> 2, sh = 8 * (mis & 3);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t lo = m == 0 ? v[k] : m == 1 ? v[k + 1] : m == 2 ? v[k + 2] : v[k + 3];
+        const uint32_t hi = m == 0 ? v[k + 1] : m == 1 ? v[k + 2] : m == 2 ? v[k + 3] : v[k + 4];
+        w[k] = __funnelshift_r(lo, hi, sh);
+      }
+    }
+    float* dst = s_in + r * in_w + c0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c0 + 4 * k >= in_wl) break;
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t byte = c0 + 4 * k + e < lim ? (w[k] >> (8 * e)) & 0xffu : 0u;
+        f[e] = __fmul_rn(static_cast<float>(byte), kU8Scale);
+      }
+      reinterpret_cast<float4*>(dst)[k] = make_float4(f[0], f[1], f[2], f[3]);
+    }
+  }
+}
+
+// Four taps of a tile row's kTileW outputs: acc[x] gains window column x +
+// k times tap k, k = 0 .. 3 in order, from the 20 window columns a .. e.
+__device__ __forceinline__ void res_step(float (&acc)[kTileW], const float4& a, const float4& b,
+                                         const float4& c, const float4& d, const float4& e,
+                                         const float4& t) {
+  const float w[20] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y,
+                       c.z, c.w, d.x, d.y, d.z, d.w, e.x, e.y, e.z, e.w};
+#pragma unroll
+  for (int x = 0; x < kTileW; ++x) {
+    acc[x] = fmaf(w[x], t.x, acc[x]);
+    acc[x] = fmaf(w[x + 1], t.y, acc[x]);
+    acc[x] = fmaf(w[x + 2], t.z, acc[x]);
+    acc[x] = fmaf(w[x + 3], t.w, acc[x]);
+  }
+}
+
+// One share's correlation for a tile row's kTileW outputs: over `rows`
+// template rows (t_row, tw4 apart) and their window rows (in_row, in_w
+// apart), n4 groups of 4 taps a row, each output's sum one chain in row and
+// tap order, as the chunked plan adds it.  A group of 4 taps is 64 FMAs for
+// one window float4 and one template float4 (a broadcast), so the loads
+// take half the shared-memory cycles the FMAs take.  The window columns
+// rotate through five float4s, so the loop moves no register; it reads at
+// most 15 columns past the last tap's window.
+__device__ __forceinline__ void res_corr(float (&acc)[kTileW], const float* in_row,
+                                         const float* t_row, int rows, int in_w, int tw4,
+                                         int n4) {
+  for (int i = 0; i < rows; ++i, in_row += in_w, t_row += tw4) {
+    const float4* wp = reinterpret_cast<const float4*>(in_row);
+    const float4* tp = reinterpret_cast<const float4*>(t_row);
+    float4 r0 = wp[0], r1 = wp[1], r2 = wp[2], r3 = wp[3], r4;
+    int q = 0;
+    for (; q + 5 <= n4; q += 5) {
+      r4 = wp[q + 4];
+      res_step(acc, r0, r1, r2, r3, r4, tp[q]);
+      r0 = wp[q + 5];
+      res_step(acc, r1, r2, r3, r4, r0, tp[q + 1]);
+      r1 = wp[q + 6];
+      res_step(acc, r2, r3, r4, r0, r1, tp[q + 2]);
+      r2 = wp[q + 7];
+      res_step(acc, r3, r4, r0, r1, r2, tp[q + 3]);
+      r3 = wp[q + 8];
+      res_step(acc, r4, r0, r1, r2, r3, tp[q + 4]);
+    }
+    if (q < n4) {
+      r4 = wp[q + 4];
+      res_step(acc, r0, r1, r2, r3, r4, tp[q]);
+      if (q + 1 < n4) {
+        r0 = wp[q + 5];
+        res_step(acc, r1, r2, r3, r4, r0, tp[q + 1]);
+        if (q + 2 < n4) {
+          r1 = wp[q + 6];
+          res_step(acc, r2, r3, r4, r0, r1, tp[q + 2]);
+          if (q + 3 < n4) {
+            r2 = wp[q + 7];
+            res_step(acc, r3, r4, r0, r1, r2, tp[q + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// sum + v[0] + v[1] + ..., in that order, over n values `stride` apart: the
+// loads of 8 values issued before their additions.
+__device__ __forceinline__ float res_column(float sum, const float* v, int n, int stride) {
+  int i = 0;
+  for (; i + 8 <= n; i += 8) {
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = v[(i + k) * stride];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum += x[k];
+  }
+  for (; i < n; ++i) sum += v[i * stride];
+  return sum;
+}
+
+// Four columns' sums over tw window columns from each (row at the first),
+// and their sums of squares, each in column order from 0, as the chunked
+// plan's row sums.
+__device__ __forceinline__ void res_row_sums(const float* row, int tw, float (&rs)[4],
+                                             float (&rq)[4]) {
+  auto group = [&](const float4& a, const float4& b) {
+    const float w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        rs[c] += w[c + k];
+        rq[c] = fmaf(w[c + k], w[c + k], rq[c]);
+      }
+    }
+  };
+  const float4* vp = reinterpret_cast<const float4*>(row);
+  float4 a = vp[0], b;
+  int j = 0;
+  for (; j + 8 <= tw; j += 8) {
+    b = vp[j / 4 + 1];
+    group(a, b);
+    a = vp[j / 4 + 2];
+    group(b, a);
+  }
+  if (j + 4 <= tw) {
+    group(a, vp[j / 4 + 1]);
+    j += 4;
+  }
+  for (; j < tw; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      rs[c] += row[c + j];
+      rq[c] = fmaf(row[c + j], row[c + j], rq[c]);
+    }
+  }
+}
+
 // L2 prefetch of frame rows y0 .. y1 by columns x0 .. x1 (clamped into the
 // frame), a 128-byte line a thread.
 __device__ void prefetch_rect(const uint8_t* frame, const Params& p, int y0, int y1, int x0,
@@ -810,16 +1067,18 @@ __device__ Best fold_slots(const Buffers& b, int k, int serving, Best* s_best, f
   }
 }
 
-// One lane's work in frame t from its state and extent, unsplit and without
-// stats; the table build decides the split and fills the rest.
-__device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Extent& e) {
+// One lane's work in frame t from its state and extent, in tiles of tile_h
+// x kTileW outputs, unsplit and without stats; the table build decides the
+// split and fills the rest.
+__device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Extent& e,
+                              int tile_h) {
   const Mode m = frame_mode(s, p, t, e);
   LaneWork w;
   w.th = e.th; w.tw = e.tw;
   w.ry0 = m.ry0; w.rx0 = m.rx0; w.ry1 = m.ry1; w.rx1 = m.rx1;
   const int reg_h = m.ry1 - m.ry0 + 1, reg_w = m.rx1 - m.rx0 + 1;
   w.tiles_x = reg_w > 0 ? (reg_w + kTileW - 1) / kTileW : 0;
-  w.n_tiles = reg_h > 0 ? ((reg_h + kTileH - 1) / kTileH) * w.tiles_x : 0;
+  w.n_tiles = reg_h > 0 ? ((reg_h + tile_h - 1) / tile_h) * w.tiles_x : 0;
   w.do_global = m.do_global;
   w.split = 1; w.begin = 0; w.n_items = 0;
   return w;
@@ -842,9 +1101,10 @@ __device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Exten
 //       window into L2;
 //   (3) the items: the block grid-strides over the union of the lanes'
 //       8 x 16 output tiles (two blocks a tile, one half of the template
-//       rows each, when there are blocks to spare); at its first item of a
-//       lane whose template the commit updated, it applies the EMA itself and
-//       computes the stats, in the order of the owner's;
+//       rows each, when there are blocks to spare; 32 x 16 tiles, one run
+//       a block, in the resident plan); at its first item of a lane whose
+//       template the commit updated, it applies the EMA itself and computes
+//       the stats, in the order of the owner's;
 //   (4) the partials: a block publishes its best for each lane it scored;
 //       for K2 and K3 the last of them to arrive (a counter a lane) folds the
 //       lane's partials into its winner;
@@ -852,7 +1112,9 @@ __device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Exten
 // After the last step, a step k = n_steps runs (1) and (2) only: the last
 // frame's commit and the records after the last scored frame.
 //
-// kWhole: the whole template is staged at once (stage_rows == th).  kOne:
+// kWhole: the whole template is staged at once (stage_rows == th).
+// kResident (float32, not kWhole): the resident plan's items, else the
+// chunked plan's.  kOne:
 // the launch has one lane (K1): its table entry is in static shared memory
 // and the item loop never changes lanes.  kExt: the lanes have extents of
 // their own (K3's bucketed mode; never with kOne); without it every lane has
@@ -860,10 +1122,12 @@ __device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Exten
 // passes of row_mma (the template rows and, after the box sums, the window
 // rows held as hi/lo slots in the float32 rows' bytes: one shared-memory
 // plan for every tier).  kStage: the ladder's stage (the header comment).
-template <bool kWhole, bool kOne, bool kExt, int kPasses, int kStage = kFull>
+template <bool kWhole, bool kOne, bool kExt, int kPasses, int kStage = kFull,
+          bool kResident = false>
 __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
-  static_assert(kStage == kFull || (kWhole && kOne && !kExt),
-                "the ladder has K1's main-path case only");
+  static_assert(!kResident || (!kWhole && kPasses == 0), "the resident plan is float32 rows");
+  static_assert(kStage == kFull || (kOne && !kExt && (kWhole || kPasses == 0)),
+                "the ladder has K1's main-path and float32 row-chunk cases only");
   extern __shared__ __align__(16) float smem[];
   __shared__ LaneWork s_one;
   __shared__ Best s_best[kWarps];
@@ -944,7 +1208,7 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
             c = commit_of<kStage>(s, best, p, tc, e);
             s = c.s;
           }
-          LaneWork w = lane_work(s, p, t, e);
+          LaneWork w = lane_work(s, p, t, e, kResident ? kResTileH : kTileH);
           w.t_mean = st_mean;
           w.t_std = st_std;
           w.t_den = __fadd_rn(w.t_std, kEps);
@@ -965,7 +1229,7 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
         }
         want += warp_sum(v);
       }
-      const bool split = want <= grid;
+      const bool split = want <= grid && !kResident;
       int carry = 0;
       for (int base = 0; base < nl; base += 32) {
         const int l = base + lane;
@@ -997,7 +1261,11 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
     // a large template's items do not gather on a few blocks.  Lane l's runs
     // begin / run .. (begin + n_items - 1) / run go to blocks first_run(l) +
     // j mod gridDim, j < serving_of(l).
-    const int run = kExt ? 1 : max(1, min(kRun, (s_n_items + grid - 1) / grid));
+    // The resident plan takes all of a block's items in one run: a block
+    // then meets at most a lane or two a step, and each staging of a lane
+    // serves all of its items there.
+    const int run =
+        kExt ? 1 : max(1, min(kResident ? kBig : kRun, (s_n_items + grid - 1) / grid));
     auto first_run = [&](int l) { return lanes[l].begin / run; };
     auto serving_of = [&](int l) {
       return lanes[l].n_items > 0
@@ -1191,7 +1459,7 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
     // block to arrive: slots of the blocks that scored the lane, the
     // lexicographic best (a total order: the winner does not depend on who
     // folds) or the checksum's sum.  K1's blocks fold after the barrier.
-    auto publish = [&](int l) {
+    auto publish = [&](int l, const Best& mine) {
       float* part_val = sel(b.part_val, db);
       int32_t* part_yx = sel(b.part_yx, db);
       const int slot = l * p.n_slots + blockIdx.x;
@@ -1202,7 +1470,7 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
         const float v = block_sum2(make_float2(fchk, 0.0f), s_red).x;
         if (threadIdx.x == 0) part_val[slot] = v;
       } else {
-        const Best v = block_best(o < kOut ? s_mine[o] : empty_best(), s_best);
+        const Best v = block_best(mine, s_best);
         if (threadIdx.x == 0) {
           part_val[slot] = v.val;
           part_yx[2 * slot] = v.y;
@@ -1251,7 +1519,185 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
       }
     };
 
-    for (int item = blockIdx.x * run; item < n_items;
+    // The resident plan's items (the other plans' loop below then has none).
+    Best res_mine = empty_best();  // thread o's best of the current lane
+    if constexpr (kResident) {
+      // Lane l's items, 32 x 16 tiles, each in two units, one template
+      // half each: the half's window rows (r_in) and their row sums, each
+      // warp one share of the half's rows for all 512 outputs (lane: a tile
+      // row's 16 outputs in registers), then each thread one output: the
+      // shares' partials added in the chunked plan's order, two rounds of
+      // 8, and the column sums.  The next unit's bytes load into registers
+      // while those sums are added (not across lanes: a new lane's staging
+      // takes the room).
+      const int r_in_w = res_in_stride(tw4);
+      float* r_in = s_tc + p.th * tw4;                    // a half's window rows
+      float* r_rs = r_in + res_in_rows(p.th) * r_in_w;    // their row sums, kTileW a row
+      float* r_rq = r_rs + res_in_rows(p.th) * kTileW;    // and sums of squares
+      float* r_part = r_rq + res_in_rows(p.th) * kTileW;  // 8 shares' partials
+      const int warp = threadIdx.x >> 5, row = threadIdx.x & 31;
+      const int ry = o / kTileW, rx = o % kTileW;          // thread o's output
+      float a_o = 0.0f, bs_o = 0.0f, bq_o = 0.0f;  // its sums over the halves so far
+      Pending pend;
+      bool have = false;  // r_in holds the unit about to be scored
+      auto next_item = [&](int it) {
+        return (it + 1) % run == 0 ? it + (grid - 1) * run + 1 : it + 1;
+      };
+      for (int item = blockIdx.x * run; item < n_items; item = next_item(item)) {
+        int l = cur < 0 ? 0 : cur;
+        if (!kOne) {
+          while (item >= lanes[l].begin + lanes[l].n_items) ++l;
+        }
+        if (l != cur) {
+          if (cur >= 0) {
+            publish(cur, res_mine);
+            res_mine = empty_best();
+          }
+          cur = l;
+        }
+        const LaneWork& w = lanes[l];
+        const int th = kExt ? w.th : p.th, tw = kExt ? w.tw : p.tw;
+        const int tw4e = kExt ? round_up4(tw) : tw4;
+        const int mid = th / 2;
+        const int in_wl = kTileW + tw4e;
+        auto origin_y = [&](int it) { return w.ry0 + ((it - w.begin) / w.tiles_x) * kResTileH; };
+        auto origin_x = [&](int it) { return w.rx0 + ((it - w.begin) % w.tiles_x) * kTileW; };
+        const int oy0 = origin_y(item), ox0 = origin_x(item);
+        if constexpr (kStage == kEmpty) {
+          if (threadIdx.x == 0) ichk += static_cast<uint32_t>(oy0 + ox0);
+          continue;
+        }
+        const uint8_t* frame = b.frames + l * p.frame_stride + t * p.frame_px;
+        if (kStage >= kScoreBox && tc_lane != l) {
+          __syncthreads();  // the last item's readers are done with the room
+          issue_whole(l, reinterpret_cast<uint32_t*>(r_in));
+          cp_wait();
+          finish_whole(l, reinterpret_cast<const uint32_t*>(r_in));
+        }
+        for (int h = 0; h < 2; ++h) {
+          const int hs = h == 0 ? 0 : mid, he = h == 0 ? mid : th;
+          const int in_rows = he - hs + kResTileH - 1;
+          if constexpr (kStage == kDma) {
+            ichk += load_window<false>(r_in, frame, p, oy0 + hs, ox0, in_rows, in_wl, r_in_w);
+            continue;
+          }
+          if constexpr (kStage == kConvert) {  // each thread reads back what it stored
+            __syncthreads();
+            load_window<true>(r_in, frame, p, oy0 + hs, ox0, in_rows, in_wl, r_in_w);
+            __syncthreads();
+            for (int idx = threadIdx.x; idx < in_rows * in_wl; idx += blockDim.x) {
+              ichk += __float_as_uint(r_in[(idx / in_wl) * r_in_w + idx % in_wl]);
+            }
+            continue;
+          }
+          if (!have) {
+            __syncthreads();  // the room is free (the staging's readers too)
+            load_window<true>(r_in, frame, p, oy0 + hs, ox0, in_rows, in_wl, r_in_w);
+            __syncthreads();
+          }
+          // The next unit: this item's second half, or the first half of
+          // the block's next item when it is the lane's.
+          int ny0 = oy0 + mid, nx0 = ox0, n_rows = th - mid + kResTileH - 1;
+          have = h == 0;
+          if (h == 1) {
+            const int ni = next_item(item);
+            have = ni < n_items && ni < w.begin + w.n_items;
+            if (have) {
+              ny0 = origin_y(ni);
+              nx0 = origin_x(ni);
+              n_rows = mid + kResTileH - 1;
+            }
+          }
+
+          // Row sums of the half's window rows, 4 columns a thread (8
+          // consecutive rows a quarter warp: no bank twice).
+          for (int task = threadIdx.x; task < 4 * in_rows; task += kThreads) {
+            const int xg = task / in_rows, r = task - xg * in_rows;
+            float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            res_row_sums(r_in + r * r_in_w + 4 * xg, tw, rs, rq);
+            reinterpret_cast<float4*>(r_rs + r * kTileW)[xg] =
+                make_float4(rs[0], rs[1], rs[2], rs[3]);
+            reinterpret_cast<float4*>(r_rq + r * kTileW)[xg] =
+                make_float4(rq[0], rq[1], rq[2], rq[3]);
+          }
+          // The correlation: warp g takes share g of the half's rows (the
+          // chunked plan's shares) for every output of the tile.
+          float acc[kTileW];
+#pragma unroll
+          for (int x = 0; x < kTileW; ++x) acc[x] = 0.0f;
+          if constexpr (kStage >= kScore) {
+            const int i_begin = hs + warp * (he - hs) / kSplit;
+            const int i_end = hs + (warp + 1) * (he - hs) / kSplit;
+            res_corr(acc, r_in + (row + i_begin - hs) * r_in_w, s_tc + i_begin * tw4,
+                     i_end - i_begin, r_in_w, tw4, tw4e / 4);
+          }
+          __syncthreads();
+          // The next unit's bytes, on their way while the sums below run.
+          if (have) res_fetch(pend, frame, p, ny0, nx0, n_rows, in_wl);
+          // The half's sums of each output, in the chunked plan's order:
+          // the column of row sums, and the shares' partials in two rounds
+          // of 8 (half 1's in reverse, as its row groups take them).
+          const int first = h == 0 ? 0 : kSplit / 2;  // the warps of the first round
+          auto store_partials = [&]() {
+            float4* part = reinterpret_cast<float4*>(r_part + (warp % (kSplit / 2)) * kResPart +
+                                                     row * kResPartStride);
+#pragma unroll
+            for (int k = 0; k < kTileW / 4; ++k) {
+              part[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+            }
+          };
+          auto add_partials = [&](float a) {  // one round, in its order
+#pragma unroll
+            for (int g = 0; g < kSplit / 2; ++g) {
+              a = __fadd_rn(a, r_part[(h == 0 ? g : kSplit / 2 - 1 - g) * kResPart +
+                                      ry * kResPartStride + rx]);
+            }
+            return a;
+          };
+          if (kStage >= kScore && warp >= first && warp < first + kSplit / 2) store_partials();
+          const float bs_h = res_column(0.0f, r_rs + o, he - hs, kTileW);
+          const float bq_h = res_column(0.0f, r_rq + o, he - hs, kTileW);
+          float a_h = 0.0f;
+          if constexpr (kStage >= kScore) {
+            __syncthreads();
+            a_h = add_partials(a_h);
+            __syncthreads();
+            if (warp < first || warp >= first + kSplit / 2) store_partials();
+            __syncthreads();
+            a_h = add_partials(a_h);
+          }
+          if (have) res_store(pend, r_in, frame, p, ny0, nx0, n_rows, in_wl, r_in_w);
+          __syncthreads();  // the next unit's window rows are in; its row sums may start
+          a_o = __fadd_rn(a_o, a_h);
+          bs_o = __fadd_rn(bs_o, bs_h);
+          bq_o = __fadd_rn(bq_o, bq_h);
+        }
+        if constexpr (kStage >= kScoreBox) {
+          const int oy = oy0 + ry, ox = ox0 + rx;
+          if (oy <= w.ry1 && ox <= w.rx1) {
+            const float n = static_cast<float>(th * tw);
+            const float mean = __fdiv_rn(bs_o, n);
+            const float var = __fsub_rn(__fdiv_rn(bq_o, n), __fmul_rn(mean, mean));
+            const float sd = __fsqrt_rn(fmaxf(var, kVarFloor));
+            const float cov = __fsub_rn(a_o, __fmul_rn(mean, w.sum_tc));
+            const float den = __fmul_rn(__fmul_rn(__fadd_rn(sd, kEps), w.t_den), n);
+            const Best cand{__fdiv_rn(cov, den), oy, ox};
+            if constexpr (kStage == kScoreBox) {
+              fchk += __fadd_rn(sd, cand.val);
+            } else if constexpr (kStage == kScore) {
+              fchk += fabsf(cand.val);
+            } else if (lex_better(cand, res_mine)) {
+              res_mine = cand;
+            }
+          }
+        }
+        a_o = 0.0f;
+        bs_o = 0.0f;
+        bq_o = 0.0f;
+      }
+    }
+
+    for (int item = kResident ? n_items : blockIdx.x * run; item < n_items;
          item += (item + 1) % run == 0 ? (grid - 1) * run + 1 : 1) {
       int l = 0;
       if (!kOne) {
@@ -1260,7 +1706,7 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
       }
       if (l != cur) {
         if (cur >= 0) {
-          publish(cur);
+          publish(cur, o < kOut ? s_mine[o] : empty_best());
           if (o < kOut) s_mine[o] = empty_best();
         }
         cur = l;
@@ -1499,7 +1945,9 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
         }
       }
     }
-    if (cur >= 0) publish(cur);
+    if (cur >= 0) {
+      publish(cur, kResident ? res_mine : (o < kOut ? s_mine[o] : empty_best()));
+    }
     owner_duties();
     // K1: the next step's whole template into s_tc while the blocks wait at
     // the barrier, once its owner has written it (step 0's is the caller's).
@@ -1537,6 +1985,14 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_kernel(const Buffers b, con
 template <bool kOne, bool kExt>
 __global__ void __launch_bounds__(kThreads) chunk_kernel_rows(const Buffers b, const Params p) {
   chunk_body<false, kOne, kExt, 0>(b, p);
+}
+
+// The float32 tier where the template does not stage whole but the resident
+// plan fits (plan_of): one block an SM, its registers left to ptxas.
+template <bool kOne, bool kExt, int kStage = kFull>
+__global__ void __launch_bounds__(kThreads) chunk_kernel_resident(const Buffers b,
+                                                                  const Params p) {
+  chunk_body<false, kOne, kExt, 0, kStage, true>(b, p);
 }
 
 // The bf16 tiers: two blocks an SM with the whole template staged (left
@@ -1624,16 +2080,16 @@ int blocks_per_sm(ChunkKernel kernel, int smem) {
 }
 
 // One chunk: the counters zeroed, then one cooperative launch of n_blocks
-// blocks of `kernel` on `stream` (every block resident, or the launch is
+// blocks of `kernel` with `smem` bytes of dynamic shared memory (its plan's,
+// plan_smem_bytes) on `stream` (every block resident, or the launch is
 // refused: cudaErrorCooperativeLaunchTooLarge).  `work` holds
 // workspace_layout(n_lanes, n_blocks).total bytes; state_i2, state_f2 and
 // tpl2 are the second buffers of the state and the template.  Returns the
 // first CUDA error, or 0.
-int launch_chunk_kernel(ChunkKernel kernel, const Params& p, int n_blocks, const uint8_t* frames,
-                        int32_t* state_i, float* state_f, float* tpl, int32_t* state_i2,
-                        float* state_f2, float* tpl2, void* work, float* rows,
-                        cudaStream_t stream) {
-  const int smem = score_smem_bytes(p.stage_rows, p.tw, p.n_lanes);
+int launch_chunk_kernel(ChunkKernel kernel, const Params& p, int smem, int n_blocks,
+                        const uint8_t* frames, int32_t* state_i, float* state_f, float* tpl,
+                        int32_t* state_i2, float* state_f2, float* tpl2, void* work,
+                        float* rows, cudaStream_t stream) {
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Workspace ws = workspace_layout(p.n_lanes, n_blocks);

@@ -7,10 +7,12 @@
 // sync by hand.  The stages and the checksums that keep each cut rung's work
 // observable are described at the top of mega_body.cuh.
 //
-// Only the main path's case is instantiated: one lane, the whole template
-// staged beside its tile (kWhole), no extent table, batch 1; at float32
-// (chunk_kernel) and at 1, 2 and 3 bf16 passes (chunk_kernel_tier), so each
-// rung runs under its tier's launch bounds.
+// Two cases are instantiated, one lane, no extent table, batch 1 each: the
+// main path's, the whole template staged beside its tile (kWhole), at
+// float32 (chunk_kernel) and at 1, 2 and 3 bf16 passes (chunk_kernel_tier),
+// so each rung runs under its tier's launch bounds; and the float32
+// row-chunk case in the resident plan (chunk_kernel_resident: a template
+// too large to stage whole, as 160 x 160 at 1080p; mega_body.cuh plan_of).
 //
 // What bounds it: a rung is a measurement, not a product path.  Its full
 // rung is K1, bound at 720p / 80 x 80 / r60 by its correlation's operations
@@ -45,6 +47,21 @@ ChunkKernel rung_kernel_of(int rung) {
   }
 }
 
+// K1's float32 row-chunk case (a template too large to stage whole) in the
+// resident plan, cut after a stage; the kFull rung is the production kernel.
+ChunkKernel rows_rung_for(int rung) {
+  switch (rung) {
+    case kEmpty: return chunk_kernel_resident<true, false, kEmpty>;
+    case kDma: return chunk_kernel_resident<true, false, kDma>;
+    case kConvert: return chunk_kernel_resident<true, false, kConvert>;
+    case kScoreBox: return chunk_kernel_resident<true, false, kScoreBox>;
+    case kScore: return chunk_kernel_resident<true, false, kScore>;
+    case kArgmax: return chunk_kernel_resident<true, false, kArgmax>;
+    case kFull: return chunk_kernel_resident<true, false>;
+    default: return nullptr;
+  }
+}
+
 // The rung's kernel at the tier `passes` (0: float32), or null.
 ChunkKernel rung_kernel_for(int rung, int passes) {
   switch (passes) {
@@ -63,10 +80,12 @@ extern "C" {
 // One stream's chunk through the rung `rung` (0 empty, 1 dma, 2 convert, 3
 // score_box, 4 score, 5 argmax, 6 full: mega_body.cuh's stages) at the score
 // tier `passes`; the arguments and the launch are pvot_mega_track_chunk's
-// (one cooperative launch on `stream`, no synchronisation), with batch 1 and
-// a template that a block stages whole.  Rung 6 is K1.  A rung before 5
-// walks the state (bx + 1, by + (t & 1)) and writes records of zeros with
-// its checksum in field 4.  Returns the first CUDA error, or 0.
+// (one cooperative launch on `stream`, no synchronisation), with batch 1.  A
+// template that a block stages whole runs the main-path case at any tier;
+// a larger one the row-chunk case, float32 and in the resident plan only.
+// Rung 6 is K1.  A rung before 5 walks the state (bx + 1, by + (t & 1)) and
+// writes records of zeros with its checksum in field 4.  Returns the first
+// CUDA error, or 0.
 int pvot_mega_breakdown_chunk(int rung, const uint8_t* frames, int n_frames, int frame_h,
                               int frame_w, int th, int tw, int32_t* state_i, float* state_f,
                               float* tpl, int32_t* state_i2, float* state_f2, float* tpl2,
@@ -77,22 +96,28 @@ int pvot_mega_breakdown_chunk(int rung, const uint8_t* frames, int n_frames, int
   const Params p = make_params(0, 1, n_frames, batch, frame_h, frame_w, th, tw, nullptr,
                                n_blocks, radius_x, radius_y, lost_threshold, enable_global,
                                min_conf, global_conf, strong_conf, lr, one_minus_lr);
-  const ChunkKernel kernel = rung_kernel_for(rung, passes);
-  if (kernel == nullptr || batch != 1 || p.stage_rows != th || p.out_h < 1 || p.out_w < 1 ||
-      n_blocks < 1 || n_frames < 0) {
+  const int plan = plan_of(th, tw, 1, passes);
+  const ChunkKernel kernel = plan == kPlanWhole      ? rung_kernel_for(rung, passes)
+                             : plan == kPlanResident ? rows_rung_for(rung)
+                                                     : nullptr;
+  if (kernel == nullptr || batch != 1 || p.out_h < 1 || p.out_w < 1 || n_blocks < 1 ||
+      n_frames < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_chunk_kernel(kernel, p, n_blocks, frames, state_i, state_f, tpl, state_i2,
-                             state_f2, tpl2, work, rows, static_cast<cudaStream_t>(stream));
+  return launch_chunk_kernel(kernel, p, plan_smem_bytes(plan, th, tw, 1), n_blocks, frames,
+                             state_i, state_f, tpl, state_i2, state_f2, tpl2, work, rows,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of the rung's kernel resident on one SM of the current device at a
 // th x tw template and the tier `passes`, or -1: its grid is at most this
 // times the SMs.
 int pvot_mega_breakdown_blocks_per_sm(int rung, int th, int tw, int passes) {
-  const int rows = stage_rows(th, tw, 1);
-  if (rows != th) return -1;
-  return blocks_per_sm(rung_kernel_for(rung, passes), score_smem_bytes(rows, tw, 1));
+  const int plan = plan_of(th, tw, 1, passes);
+  const ChunkKernel kernel = plan == kPlanWhole      ? rung_kernel_for(rung, passes)
+                             : plan == kPlanResident ? rows_rung_for(rung)
+                                                     : nullptr;
+  return kernel == nullptr ? -1 : blocks_per_sm(kernel, plan_smem_bytes(plan, th, tw, 1));
 }
 
 }  // extern "C"

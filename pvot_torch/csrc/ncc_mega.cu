@@ -45,7 +45,12 @@
 //       sums.  A block stages the centered template and its u8 input rows,
 //       converted as v * float32(1/255), in shared memory: the whole template
 //       when it fits beside its tile, else chunks of rows within each half
-//       (templates up to 256 x 256; two instantiations, kWhole).  When the
+//       (templates up to 256 x 256; two instantiations, kWhole).  At float32
+//       a template too large for that (160 x 160) is staged whole once a
+//       step for a block's run of a lane's 32 x 16 tiles where it fits with
+//       one half's window rows (the resident plan, mega_body.cuh plan_of),
+//       each warp one share of the half's rows, a thread a tile row's 16
+//       outputs in registers; the sums keep the chunked plan's order.  When the
 //       commit's template EMA runs (score >= 0.7), the block that stages the
 //       lane applies it itself while staging, from the previous template and
 //       the frame's u8 patch at the winner, and computes the new mean, std
@@ -162,11 +167,15 @@ ChunkKernel chunk_kernel_of(bool whole, bool one, bool ext) {
   }
 }
 
-// The chunk kernel's instantiation for a template staged whole or in
-// chunks, for one lane or many, for lanes with extents of their own, and
-// for the score tier (0: float32; 1, 2, 3: bf16 passes); null for another
-// tier.
-ChunkKernel chunk_kernel_for(bool whole, bool one, bool ext, int passes) {
+// The chunk kernel's instantiation for the plan (plan_of), for one lane or
+// many, for lanes with extents of their own, and for the score tier (0:
+// float32; 1, 2, 3: bf16 passes); null for another tier.
+ChunkKernel chunk_kernel_for(int plan, bool one, bool ext, int passes) {
+  if (plan == kPlanResident) {
+    if (one) return chunk_kernel_resident<true, false>;
+    return ext ? chunk_kernel_resident<false, true> : chunk_kernel_resident<false, false>;
+  }
+  const bool whole = plan == kPlanWhole;
   switch (passes) {
     case 0: return chunk_kernel_of<0>(whole, one, ext);
     case 1: return chunk_kernel_of<1>(whole, one, ext);
@@ -190,16 +199,16 @@ int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int
   const Params p = make_params(frame_stride, n_lanes, n_frames, batch, frame_h, frame_w, th, tw,
                                ext, n_blocks, radius_x, radius_y, lost_threshold, enable_global,
                                min_conf, global_conf, strong_conf, lr, one_minus_lr);
+  const int plan = plan_of(th, tw, n_lanes, passes);
   // A one-lane launch runs the kOne instantiation, which takes the launch's
   // extent: an extent table needs two lanes or more.
-  const ChunkKernel kernel =
-      chunk_kernel_for(p.stage_rows == th, n_lanes == 1, ext != nullptr, passes);
-  if (p.stage_rows < 1 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1 ||
-      n_frames < 0 || (ext != nullptr && n_lanes < 2) || kernel == nullptr || batch < 1) {
+  const ChunkKernel kernel = chunk_kernel_for(plan, n_lanes == 1, ext != nullptr, passes);
+  if (plan < 0 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1 || n_frames < 0 ||
+      (ext != nullptr && n_lanes < 2) || kernel == nullptr || batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_chunk_kernel(kernel, p, n_blocks, frames, state_i, state_f, tpl, state_i2,
-                             state_f2, tpl2, work, rows, stream);
+  return launch_chunk_kernel(kernel, p, plan_smem_bytes(plan, th, tw, n_lanes), n_blocks, frames,
+                             state_i, state_f, tpl, state_i2, state_f2, tpl2, work, rows, stream);
 }
 
 }  // namespace
@@ -295,16 +304,24 @@ int pvot_mega_stage_rows(int th, int tw, int n_lanes) {
   return stage_rows(th, tw, n_lanes);
 }
 
+// The shared-memory plan of a launch (plan_of: 0 whole, 1 resident, 2
+// chunked; -1 none fits) and its dynamic shared memory in bytes into *smem,
+// for the wrapper's plan mirror and its launch counters to be held against.
+int pvot_mega_plan(int th, int tw, int n_lanes, int passes, int* smem) {
+  const int plan = plan_of(th, tw, n_lanes, passes);
+  *smem = plan < 0 ? 0 : plan_smem_bytes(plan, th, tw, n_lanes);
+  return plan;
+}
+
 // Chunk-kernel blocks resident on one SM of the current device at the given
 // geometry, lanes, extent table (ext != 0) and tier, or -1 on a CUDA error
 // or an unsupported geometry: the grid of a launch is at most this times the
 // SMs.
 int pvot_mega_score_blocks_per_sm(int th, int tw, int n_lanes, int ext, int passes) {
-  const int rows = stage_rows(th, tw, n_lanes);
-  if (rows < 1 || n_lanes < 1) return -1;
-  return blocks_per_sm(chunk_kernel_for(rows == th, n_lanes == 1, ext != 0 && n_lanes > 1,
-                                        passes),
-                       score_smem_bytes(rows, tw, n_lanes));
+  const int plan = plan_of(th, tw, n_lanes, passes);
+  if (plan < 0 || n_lanes < 1) return -1;
+  return blocks_per_sm(chunk_kernel_for(plan, n_lanes == 1, ext != 0 && n_lanes > 1, passes),
+                       plan_smem_bytes(plan, th, tw, n_lanes));
 }
 
 const char* pvot_cuda_error_string(int err) {

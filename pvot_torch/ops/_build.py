@@ -56,6 +56,8 @@ SIGNATURES = {
     ),
     "pvot_mega_work_bytes": ([_I, _I], ctypes.c_longlong),
     "pvot_mega_stage_rows": ([_I, _I, _I], ctypes.c_int),
+    # th, tw, n_lanes, passes, smem (int out) -> plan
+    "pvot_mega_plan": ([_I, _I, _I, _I, _P], ctypes.c_int),
     # th, tw, n_lanes, ext, passes
     "pvot_mega_score_blocks_per_sm": ([_I, _I, _I, _I, _I], ctypes.c_int),
     # rung, th, tw, passes

@@ -67,6 +67,12 @@ MAX_SPAN = 512
 SMEM_LIMIT = 232_448 - 3072
 _TILE_H, _TILE_W, _SPLIT = 8, 16, 16
 _LANE_WORK_BYTES = 132
+# The resident plan's constants (kResTileH, kResPart, kPreSlots and kThreads
+# in csrc/mega_body.cuh).
+_RES_TILE_H, _RES_PART, _PRE_SLOTS, _THREADS = 32, 32 * (16 + 4), 3, 512
+# The chunk kernel's shared-memory plans (csrc/mega_body.cuh plan_of), in
+# the C entry's numbering.
+PLANS = ("whole", "resident", "chunked")
 
 
 def check_batch(batch) -> int:
@@ -94,6 +100,10 @@ def score_grid(blocks_per_sm: int, n_sms: int) -> int:
     return blocks_per_sm * n_sms
 
 
+def _table_bytes(table_lanes: int) -> int:
+    return -(-table_lanes * _LANE_WORK_BYTES // 16) * 16 if table_lanes > 1 else 0
+
+
 def score_smem_bytes(rows: int, tw: int, table_lanes: int) -> int:
     """csrc/mega_body.cuh score_smem_bytes: the lane table (none for one
     lane), `rows` centered template rows, their input rows with row sums, and
@@ -101,10 +111,36 @@ def score_smem_bytes(rows: int, tw: int, table_lanes: int) -> int:
     tw4 = -(-tw // 4) * 4
     in_w = _TILE_W + tw4 + ((16 - (_TILE_W + tw4) % 32) + 32) % 32
     in_h = rows + _TILE_H - 1
-    table = -(-table_lanes * _LANE_WORK_BYTES // 16) * 16 if table_lanes > 1 else 0
     n_out = _TILE_H * _TILE_W
-    return table + 4 * (rows * tw4 + in_h * in_w + 2 * in_h * _TILE_W
-                        + 2 * _SPLIT * n_out + 4 * n_out)
+    return _table_bytes(table_lanes) + 4 * (rows * tw4 + in_h * in_w + 2 * in_h * _TILE_W
+                                            + 2 * _SPLIT * n_out + 4 * n_out)
+
+
+def _res_work_floats(th: int, tw: int) -> int:
+    """csrc/mega_body.cuh res_work_floats: the longer template half's window
+    rows (32-row tiles, the row stride an odd multiple of 4 floats modulo 32),
+    their row sums and sums of squares, and 8 shares' partials (32 rows of 16
+    outputs, 20 floats apart)."""
+    tw4 = -(-tw // 4) * 4
+    in_w = _TILE_W + tw4 + (4 if (_TILE_W + tw4) % 8 == 0 else 0)
+    in_h = th - th // 2 + _RES_TILE_H - 1
+    return in_h * in_w + 2 * in_h * _TILE_W + _SPLIT // 2 * _RES_PART
+
+
+def resident_smem_bytes(th: int, tw: int, table_lanes: int) -> int:
+    """csrc/mega_body.cuh resident_smem_bytes: the lane table, the whole
+    template, and the window work of one template half."""
+    return _table_bytes(table_lanes) + 4 * (th * (-(-tw // 4) * 4) + _res_work_floats(th, tw))
+
+
+class Plan(NamedTuple):
+    """A launch's shared-memory plan (csrc/mega_body.cuh plan_of): its name
+    in PLANS, its dynamic shared memory in bytes and the template rows the
+    chunked plan stages at once."""
+
+    name: str
+    smem_bytes: int
+    stage_rows: int
 
 
 class MegaGeometry:
@@ -139,6 +175,24 @@ class MegaGeometry:
 
     def smem_bytes(self, table_lanes: int = 1) -> int:
         return score_smem_bytes(self.stage_rows(table_lanes), self.tw, table_lanes)
+
+    def plan(self, table_lanes: int = 1, passes: int = 0) -> Plan:
+        """csrc/mega_body.cuh plan_of: "whole" when the template stages whole;
+        else "resident" at float32 (passes 0) when the whole template, the
+        longer half's window work, the EMA's patch bytes (where the window
+        rows go) and the half's 16-column groups (3 a thread) fit; else
+        "chunked".  Raises where not even chunks fit."""
+        rows = self.check(table_lanes).stage_rows(table_lanes)
+        if rows == self.th:
+            return Plan("whole", score_smem_bytes(rows, self.tw, table_lanes), rows)
+        tw4 = -(-self.tw // 4) * 4
+        in_h = self.th - self.th // 2 + _RES_TILE_H - 1
+        fits = (resident_smem_bytes(self.th, self.tw, table_lanes) <= SMEM_LIMIT
+                and self.th * ((self.tw + 6) // 4) <= _res_work_floats(self.th, self.tw)
+                and in_h * -(-(_TILE_W + tw4) // 16) <= _PRE_SLOTS * _THREADS)
+        if passes == 0 and fits:
+            return Plan("resident", resident_smem_bytes(self.th, self.tw, table_lanes), rows)
+        return Plan("chunked", score_smem_bytes(rows, self.tw, table_lanes), rows)
 
     def supported(self) -> bool:
         """The JAX mega envelope as a predicate of the geometry alone
@@ -493,9 +547,10 @@ def mega_track_chunk(
     On a CUDA device: one cooperative launch on the current stream
     (`chunk_launches`), whatever F and the batch, no host synchronisation;
     it raises if the card refuses it.  `mega_track_chunk.launches` grows by
-    1, and so does `mega_track_chunk.launches_by_tier[p]` for the tier's pass
-    count p (0: float32).  On the CPU: the plain version.  Frames past
-    `n_valid` commit nothing."""
+    1, and so do `mega_track_chunk.launches_by_tier[p]` for the tier's pass
+    count p (0: float32) and `mega_track_chunk.launches_by_plan[name]` for
+    the kernel's shared-memory plan (`MegaGeometry.plan`).  On the CPU: the
+    plain version.  Frames past `n_valid` commit nothing."""
     with timing.span("pvot.chunk"):
         passes = score_tier(highest, score_passes)
         batch = check_batch(batch)
@@ -510,7 +565,7 @@ def mega_track_chunk(
         frames_u8 = frames_u8.contiguous()
         f, h, w = frames_u8.shape
         th, tw = template.shape
-        MegaGeometry((h, w), (th, tw), config).check()
+        plan = MegaGeometry((h, w), (th, tw), config).plan(1, passes).name
         from pvot_torch.ops import _build
 
         lib = _build.load_library()
@@ -522,14 +577,16 @@ def mega_track_chunk(
                 passes=passes, batch=batch,
             )
             _build.check(out.err, "mega_track_chunk")
-            _count(mega_track_chunk, chunk_launches(f, batch), passes)
+            _count(mega_track_chunk, chunk_launches(f, batch), passes, plan)
         return out.rows[0], out.template[0, :, :tw].contiguous()
 
 
-def _count(wrapper, n: int, passes: int) -> None:
-    """Add a call's launches to its wrapper's counters."""
+def _count(wrapper, n: int, passes: int, plan: str) -> None:
+    """Add a call's launches to its wrapper's counters: all, by tier, and by
+    the kernel's shared-memory plan (`MegaGeometry.plan`)."""
     wrapper.launches += n
     wrapper.launches_by_tier[passes] += n
+    wrapper.launches_by_plan[plan] += n
 
 
 def reset_launches(*wrappers) -> None:
@@ -537,6 +594,7 @@ def reset_launches(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
         w.launches_by_tier = dict.fromkeys(range(4), 0)
+        w.launches_by_plan = dict.fromkeys(PLANS, 0)
 
 
 reset_launches(mega_track_chunk)
@@ -584,7 +642,7 @@ def mega_track_chunk_multi(
         th, tw = template.shape[-2:]
         if template.shape[0] != s or bbox.shape != (s, 4):
             raise ValueError(f"states for {template.shape[0]} streams, frames for {s}")
-        MegaGeometry((h, w), (th, tw), config).check(s)
+        plan = MegaGeometry((h, w), (th, tw), config).plan(s, passes).name
         from pvot_torch.ops import _build
 
         lib = _build.load_library()
@@ -596,7 +654,7 @@ def mega_track_chunk_multi(
                 passes=passes, batch=batch,
             )
             _build.check(out.err, "mega_track_chunk_multi")
-            _count(mega_track_chunk_multi, chunk_launches(f, batch), passes)
+            _count(mega_track_chunk_multi, chunk_launches(f, batch), passes, plan)
         return out.rows, out.template[:, :, :tw].contiguous()
 
 
@@ -652,7 +710,7 @@ def mega_track_chunk_objects(
         # The kernel's buffer is the smallest bucket that holds every object; a
         # set whose objects all share one extent runs without an extent table.
         bh, bw = max(e[0] for e in extents), max(e[1] for e in extents)
-        MegaGeometry((h, w), (bh, bw), config).check(k)
+        plan = MegaGeometry((h, w), (bh, bw), config).plan(k, passes).name
         from pvot_torch.ops import _build
 
         lib = _build.load_library()
@@ -665,7 +723,7 @@ def mega_track_chunk_objects(
                 passes=passes, batch=batch,
             )
             _build.check(out.err, "mega_track_chunk_objects")
-            _count(mega_track_chunk_objects, chunk_launches(f, batch), passes)
+            _count(mega_track_chunk_objects, chunk_launches(f, batch), passes, plan)
         if (bh, bw) == tuple(template.shape[-2:]):
             return out.rows, out.template[:, :, :bw].contiguous()
         full = template.to(torch.float32).clone()

@@ -22,6 +22,13 @@ walk the chunk's frames and meet at a grid barrier a frame:
   full       + the template EMA and stats, in the staging: K1
 
 Deltas between consecutive rungs attribute a frame's time to the stages.
+
+`--case rows` runs the float32 row-chunk case instead: K1 at 1080p / 160 x
+160 / r160 (a template too large to stage whole beside its tile, run by
+chunk_kernel_rows under its shared-memory plan, `MegaGeometry.plan`), float32
+only.  Every checksum is held to its plain version there (the window rungs'
+through the plan's units), the `argmax` rung's boxes to its plain version's,
+and the `full` rung's records to `mega_track_chunk`'s, bit for bit.
 The JAX ladder's `roll` rung has no counterpart: the port addresses its
 window in place, with no alignment roll, so the deltas run over the rungs
 above.  Its floor-hunt rungs (`empty_const`, `empty_smem`, `empty_scratch`,
@@ -40,7 +47,7 @@ JAX ladder has no global branch, so the entry point runs K1 with global
 search off (`local_config`); the bench clip has no global frame either way.
 
     python -m pvot_torch.tools.mega_breakdown [--tier highest|1pass|2pass|3pass]
-        [--chunk 512] [--device cpu]
+        [--case whole|rows] [--chunk 512] [--device cpu]
 
 It tracks the bench clip (SyntheticSpec(1280, 720, chunk + 1, 80x80,
 seed=1)) from its ground-truth box at radius 60 and prints one JSON line a
@@ -66,8 +73,8 @@ import torch
 from pvot_torch.config import TrackerConfig
 from pvot_torch.io.gray import ensure_gray_f32
 from pvot_torch.ops.ncc_mega import (
-    MegaGeometry, _check_cuda_inputs, _frame_mode, _grid_blocks, _launch, chunk_launches,
-    mega_track_chunk, mega_track_chunk_reference,
+    _RES_TILE_H, MegaGeometry, _check_cuda_inputs, _frame_mode, _grid_blocks, _launch,
+    chunk_launches, mega_track_chunk, mega_track_chunk_reference,
 )
 from pvot_torch.ops.ncc_reference import ncc_scores
 
@@ -79,9 +86,12 @@ INT_RUNGS = ("empty", "dma", "convert")  # exact integer checksums, modulo 2^24
 CHECKSUM_RTOL = 1e-4
 TIERS = {"highest": 0, "1pass": 1, "2pass": 2, "3pass": 3}
 H100_SCORE_BLOCKS = 2 * 132  # a rung's grid on an H100: two blocks an SM
+H100_ROW_BLOCKS = 132  # a row-chunk rung's: one block an SM
 N_CALLS = 8  # back-to-back chunk calls a timed run
 _MASK = (1 << 24) - 1
 _TILE_H, _TILE_W = 8, 16
+# The row-chunk case: 1080p, a 160 x 160 template, radius 160.
+ROWS_FRAME, ROWS_TEMPLATE, ROWS_RADIUS = (1080, 1920), 160, 160
 
 
 def tier_kw(tier: str) -> dict:
@@ -107,8 +117,9 @@ def mega_breakdown_chunk(rung: str, frames_u8: torch.Tensor, state, config: Trac
     TrackerState): (rows (F, 10), template), as `mega_track_chunk` returns
     them.  On a CUDA device: csrc/mega_breakdown.cu, one cooperative launch
     on the current stream (`chunk_launches`, as K1), no host
-    synchronisation, `mega_breakdown_chunk.launches` grows by 1; the
-    template must stage whole beside a tile (80 x 80 does).  On the CPU: the
+    synchronisation, `mega_breakdown_chunk.launches` grows by 1; a template
+    that stages whole beside a tile (80 x 80 does) runs the main-path case
+    at any tier, a larger one the float32 row-chunk case.  On the CPU: the
     plain version."""
     if rung not in RUNGS:
         raise ValueError(f"rung must be one of {RUNGS}, got {rung!r}")
@@ -121,8 +132,9 @@ def mega_breakdown_chunk(rung: str, frames_u8: torch.Tensor, state, config: Trac
     frames_u8 = frames_u8.contiguous()
     h, w = frames_u8.shape[1:]
     th, tw = template.shape
-    if MegaGeometry((h, w), (th, tw), config).check().stage_rows() != th:
-        raise ValueError(f"the ladder stages the whole template; {th}x{tw} does not fit")
+    if MegaGeometry((h, w), (th, tw), config).plan(1, passes).name not in ("whole", "resident"):
+        raise ValueError(f"the row-chunk case ({th}x{tw}) has float32 rungs in the resident "
+                         "plan only")
     from pvot_torch.ops import _build
 
     lib = _build.load_library()
@@ -140,21 +152,44 @@ def mega_breakdown_chunk(rung: str, frames_u8: torch.Tensor, state, config: Trac
 mega_breakdown_chunk.launches = 0
 
 
-def _items(region, do_global: bool, n_blocks: int, th: int):
+def _items(region, do_global: bool, n_blocks: int, th: int, plan: str = "whole"):
     """A step's items for a one-lane frame (csrc/mega_body.cuh chunk_body,
     kOne): (tile origins oy0, ox0, first and end template rows
     u0, u1), one per item; two items a tile, one half of the template rows
-    each, when the launch has a block for each."""
+    each, when the launch has a block for each (never in the resident plan,
+    whose tiles are _RES_TILE_H rows high)."""
     ry0, ry1, rx0, rx1 = region
     reg_h, reg_w = ry1 - ry0 + 1, rx1 - rx0 + 1
     if reg_h <= 0 or reg_w <= 0:
         return []
+    tile_h = _RES_TILE_H if plan == "resident" else _TILE_H
     tiles_x = -(-reg_w // _TILE_W)
-    n_tiles = -(-reg_h // _TILE_H) * tiles_x
-    split = 2 if not do_global and 2 * n_tiles <= n_blocks else 1
+    n_tiles = -(-reg_h // tile_h) * tiles_x
+    split = 2 if plan != "resident" and not do_global and 2 * n_tiles <= n_blocks else 1
     halves = [(0, th // 2), (th // 2, th)] if split == 2 else [(0, th)]
-    return [(ry0 + (tile // tiles_x) * _TILE_H, rx0 + (tile % tiles_x) * _TILE_W, u0, u1)
+    return [(ry0 + (tile // tiles_x) * tile_h, rx0 + (tile % tiles_x) * _TILE_W, u0, u1)
             for tile in range(n_tiles) for u0, u1 in halves]
+
+
+def _units(items, th: int, plan: str, stage_rows: int):
+    """The window rows each item loads, one range [y0, y1) a unit: the
+    item's rows (whole); chunks of stage_rows within each half (chunked);
+    each template half with the tile's _RES_TILE_H - 1 more (resident)."""
+    mid = th // 2
+    out = []
+    for oy0, ox0, u0, u1 in items:
+        if plan == "whole":
+            out.append((oy0 + u0, oy0 + u1 + _TILE_H - 1, ox0))
+        elif plan == "resident":
+            more = _RES_TILE_H - 1
+            out += [(oy0, oy0 + mid + more, ox0), (oy0 + mid, oy0 + th + more, ox0)]
+        else:
+            a = u0
+            while a < u1:
+                b = min(a + stage_rows, mid if a < mid else th)
+                out.append((oy0 + a, oy0 + b + _TILE_H - 1, ox0))
+                a = b
+    return out
 
 
 def _integral(values: torch.Tensor) -> torch.Tensor:
@@ -174,10 +209,11 @@ def _rect_sums(ii: torch.Tensor, y0, y1, x0, x1) -> torch.Tensor:
 
 def _checksum(rung: str, frame: torch.Tensor, region, do_global: bool, n_blocks: int,
               tpl: torch.Tensor, t_mean: torch.Tensor, t_std: torch.Tensor,
-              sum_tc: torch.Tensor, passes: int) -> float:
+              sum_tc: torch.Tensor, passes: int, plan: str = "whole",
+              stage_rows: int = 0) -> float:
     """The checksum of one frame at a rung before `argmax` (csrc/mega_body.cuh)."""
     th, tw = tpl.shape
-    items = _items(region, do_global, n_blocks, th)
+    items = _items(region, do_global, n_blocks, th, plan)
     if not items:
         return 0.0
     oy0, ox0, u0, u1 = (torch.tensor(c, device=frame.device) for c in zip(*items))
@@ -186,11 +222,13 @@ def _checksum(rung: str, frame: torch.Tensor, region, do_global: bool, n_blocks:
     v32 = frame.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32,
                                                  device=frame.device)
     if rung in ("dma", "convert"):
-        # Each item loads its unit's input rows, u1 - u0 + 7 of them, and
-        # 16 + round_up4(tw) columns from its tile's origin.
+        # Each unit loads its input rows (`_units`) and 16 + round_up4(tw)
+        # columns from its tile's origin.
         vals = frame.to(torch.int64) if rung == "dma" else v32.view(torch.int32).to(torch.int64)
         in_wl = _TILE_W + -(-tw // 4) * 4
-        s = _rect_sums(_integral(vals), oy0 + u0, oy0 + u1 + _TILE_H - 1, ox0, ox0 + in_wl)
+        y0, y1, x0 = (torch.tensor(c, device=frame.device)
+                      for c in zip(*_units(items, th, plan, stage_rows)))
+        s = _rect_sums(_integral(vals), y0, y1, x0, x0 + in_wl)
         return float(int(s.sum()) & _MASK)
     ry0, ry1, rx0, rx1 = region
     n = float(th * tw)
@@ -233,13 +271,14 @@ def mega_breakdown_reference(rung: str, frames_u8: torch.Tensor, state, config: 
     dev = frames_u8.device
     tpl = state.template.to(dev, torch.float32)
     th, tw = tpl.shape
+    plan = MegaGeometry((h, w), (th, tw), config).plan(1, TIERS[tier])
     if dev.type == "cuda":
         from pvot_torch.ops import _build
 
         n_blocks = _grid_blocks(_build.load_library(), dev, th, tw, 1, False, TIERS[tier],
                                 RUNGS.index(rung))
     else:
-        n_blocks = H100_SCORE_BLOCKS
+        n_blocks = H100_SCORE_BLOCKS if plan.name == "whole" else H100_ROW_BLOCKS
     t_mean, t_std = state.t_mean.to(dev, torch.float32), state.t_std.to(dev, torch.float32)
     sum_tc = torch.sum(tpl - t_mean)
     g = MegaGeometry((h, w), (th, tw), config)
@@ -249,7 +288,7 @@ def mega_breakdown_reference(rung: str, frames_u8: torch.Tensor, state, config: 
     for t in range(f):
         _, do_global, region = _frame_mode(g, config, (bx, by, bw, bh), lost, useg, True)
         rows[t, 4] = _checksum(rung, frames_u8[t], region, do_global, n_blocks, tpl, t_mean,
-                               t_std, sum_tc, TIERS[tier])
+                               t_std, sum_tc, TIERS[tier], plan.name, plan.stage_rows)
         bx, by = min(bx + 1, w - tw - 1), min(by + (t & 1), h - th - 1)
     return rows.to(dev), tpl.clone()
 
@@ -349,10 +388,78 @@ def ladder(tier: str = "highest", chunk: int = 512, device=None, clip=None) -> d
     return result
 
 
+def rows_clip(chunk: int):
+    """The row-chunk case's clip: (spec, frames), SyntheticSpec(1920, 1080,
+    chunk + 1, a 160 x 160 target, seed=3)."""
+    from pvot_torch.io.synthetic import SyntheticSpec, generate_gray_video
+
+    h, w = ROWS_FRAME
+    spec = SyntheticSpec(width=w, height=h, num_frames=chunk + 1, target_w=ROWS_TEMPLATE,
+                         target_h=ROWS_TEMPLATE, seed=3)
+    return spec, generate_gray_video(spec)
+
+
+def rows_ladder(chunk: int = 48, device=None) -> dict:
+    """The row-chunk case's ladder (float32) over `chunk` frames of
+    `rows_clip`, K1 tracking from the ground-truth box at radius 160 with
+    global search off: one JSON line a rung, each held to its plain version
+    (`checked`: the checksums' relative difference, "boxes equal" for the
+    `argmax` rung, "bit-equal" for the `full` rung's records against
+    `mega_track_chunk`), then the deltas;
+    returns {"plan", "rungs", "deltas"} (no times on the CPU)."""
+    from pvot_torch.bench import state_at
+
+    dev = torch.device(device or "cuda")
+    config = local_config(TrackerConfig(search_radius_x=ROWS_RADIUS, search_radius_y=ROWS_RADIUS))
+    spec, frames = rows_clip(chunk)
+    state = state_at(spec, frames, 0, dev)
+    staged = torch.from_numpy(frames[1:]).to(dev)
+    plan = MegaGeometry(frames.shape[1:], (ROWS_TEMPLATE, ROWS_TEMPLATE), config).plan()
+    name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    result = {"plan": plan.name, "rungs": {}, "deltas": {}}
+    for rung in RUNGS:
+        rows = mega_breakdown_chunk(rung, staged, state, config)[0]
+        if rung == "full":
+            want = mega_track_chunk(staged, *_state_args(state, chunk), config)[0]
+            if not torch.equal(rows.cpu(), want.cpu()):
+                raise AssertionError("rows ladder: the full rung's records differ from K1's")
+            checked = "bit-equal"
+        elif rung == "argmax":
+            want = mega_breakdown_reference(rung, staged, state, config)[0].cpu()
+            if not torch.equal(rows.cpu()[:, [0, 1, 2, 3, 5]], want[:, [0, 1, 2, 3, 5]]):
+                raise AssertionError("rows ladder: the argmax rung's boxes differ from plain")
+            checked = "boxes equal"
+        else:
+            checked = checksums_agree(rung, rows, mega_breakdown_reference(rung, staged, state,
+                                                                           config)[0])
+        line = {"chk": float(rows[:, 4].double().sum()), "checked": checked}
+        if dev.type == "cuda":
+            def call():
+                return mega_breakdown_chunk(rung, staged, state, config)
+
+            line["us_per_frame"] = _best_us_per_frame(call, chunk)
+            line["kernel_us_per_frame"] = device_us_per_frame(call, chunk)
+        result["rungs"][rung] = line
+        print(json.dumps({"rows": rung, **line}))
+    if dev.type == "cuda":
+        prev = 0.0
+        for rung in RUNGS:
+            result["deltas"][rung] = result["rungs"][rung]["kernel_us_per_frame"] - prev
+            prev = result["rungs"][rung]["kernel_us_per_frame"]
+    print(json.dumps({"case": "rows", "plan": plan.name, "mega_breakdown": {
+        r: v.get("kernel_us_per_frame") for r, v in result["rungs"].items()},
+        "deltas": result["deltas"] or None, "chunk": chunk, "device": name}))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tier", default="highest", choices=list(TIERS))
-    ap.add_argument("--chunk", type=int, default=512)
+    ap.add_argument("--case", default="whole", choices=("whole", "rows"),
+                    help="K1's main-path case (720p, 80x80) or its float32 row-chunk case "
+                         "(1080p, 160x160, r160)")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="frames a chunk (default 512 for whole, 48 for rows)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the plain versions, no time)")
     args = ap.parse_args(argv)
@@ -364,7 +471,12 @@ def main(argv=None) -> int:
         from pvot_torch.bench import gpu_identity
 
         print(f"gpu: {gpu_identity()[0]}")
-    ladder(args.tier, args.chunk, args.device)
+    if args.case == "rows":
+        if args.tier != "highest":
+            ap.error("the row-chunk case is float32 only")
+        rows_ladder(args.chunk or 48, args.device)
+    else:
+        ladder(args.tier, args.chunk or 512, args.device)
     return 0
 
 

@@ -29,11 +29,13 @@ from pvot.tracker.scan import track_video as jax_track_video
 from pvot.tracker.state import init_state as jax_init_state
 from pvot_torch.convert import state_from_numpy
 from pvot_torch.ops.ncc_mega import (
-    O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, SMEM_LIMIT, MegaGeometry, mega_track_chunk,
-    mega_track_chunk_multi, mega_track_chunk_multi_reference, mega_track_chunk_reference,
+    O_GUSED, O_LOST, O_SCORE, O_UPDATED, O_USEG, PLANS, SMEM_LIMIT, MegaGeometry,
+    mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_multi_reference,
+    mega_track_chunk_objects, mega_track_chunk_reference, reset_launches, resident_smem_bytes,
     score_smem_bytes,
 )
 from pvot_torch.parallel.multi import stack_states
+from pvot_torch.tracker.state import init_state
 
 H, W, T = 94, 250, 16
 KW = dict(search_radius_x=8, search_radius_y=8, lost_frame_threshold=3)
@@ -193,6 +195,47 @@ def test_smem_plan_mirrors_the_kernel(rows, tw, lanes, nbytes):
     assert score_smem_bytes(rows, tw, lanes) == nbytes
 
 
+# The resident plan's bytes at 160 x 160 (csrc/mega_body.cuh
+# resident_smem_bytes): the template (160 x 160 floats), the longer half's
+# window rows (80 + 31 rows of 16 + 160 + 4 floats), their row sums and sums
+# of squares (111 x 16 each), and 8 shares' partials of a 32 x 16 tile (rows
+# 20 floats apart); plus a 132-byte lane entry a lane past the first.
+RESIDENT_160 = 4 * (160 * 160 + 111 * 180 + 2 * 111 * 16 + 8 * 32 * 20)
+
+
+@pytest.mark.parametrize("templ,lanes,passes,plan,nbytes", [
+    ((160, 160), 1, 0, "resident", RESIDENT_160),
+    ((160, 160), 8, 0, "resident", RESIDENT_160 + 8 * 132),
+    # the bf16 tiers keep the chunked plan: 80-row chunks
+    ((160, 160), 8, 1, "chunked", 143_072),
+    # the template and the smallest half's window work do not fit beside 200
+    # lanes' table (26,400 bytes), nor beside none: quarters and halves
+    ((176, 256), 200, 0, "chunked", 151_904),
+    ((176, 256), 1, 0, "chunked", 224_064),
+    ((80, 80), 1, 0, "whole", 94_144),
+])
+def test_plan_mirrors_the_kernel(templ, lanes, passes, plan, nbytes):
+    """MegaGeometry.plan: csrc/mega_body.cuh plan_of and the plan's dynamic
+    shared memory; the chunked plan's chunks are stage_rows'."""
+    g = MegaGeometry((1080, 1920), templ, pvot_torch.TrackerConfig())
+    got = g.plan(lanes, passes)
+    assert (got.name, got.smem_bytes, got.stage_rows) == (plan, nbytes, g.stage_rows(lanes))
+    assert got.smem_bytes <= SMEM_LIMIT
+    if plan == "resident":
+        assert got.smem_bytes == resident_smem_bytes(*templ, lanes)
+
+
+def test_launches_by_plan_start_at_zero():
+    """Each chunk wrapper counts its launches by plan beside its tiers, and
+    reset_launches zeroes both."""
+    wrappers = (mega_track_chunk, mega_track_chunk_multi, mega_track_chunk_objects)
+    reset_launches(*wrappers)
+    for w in wrappers:
+        assert PLANS == ("whole", "resident", "chunked")
+        assert w.launches_by_plan == dict.fromkeys(PLANS, 0)
+        assert w.launches == 0 and set(w.launches_by_tier.values()) == {0}
+
+
 def test_stage_rows_keep_room_for_static_shared_memory():
     """The dynamic plan stays 3 KB below the block's 227 KB, for the chunk
     kernel's static shared memory: a 104x221 template, whose whole plan
@@ -270,3 +313,41 @@ def test_cuda_chunked_staging_matches_k1(cuda_device):
     many = tuple(v.expand(200, *v.shape).contiguous() for v in one)
     rows, tpl = mega_track_chunk_multi(clip.expand(200, *clip.shape), *many, [3] * 200, cfg)
     assert torch.equal(rows, k1[0].expand_as(rows)) and torch.equal(tpl, k1[1].expand_as(tpl))
+    # Both plans are the chunked one (test_plan_mirrors_the_kernel's bytes).
+    assert g.plan(1).name == g.plan(200).name == "chunked"
+
+
+@pytest.mark.cuda
+def test_cuda_resident_plan_matches_k1(cuda_device):
+    """The resident plan at 1080p / 160 x 160 / r160, all local: 4 streams in
+    one launch, each stream's records and template K1's on it alone, bit for
+    bit, both launches counted as resident; and within the plain version's
+    contract."""
+    rng = np.random.default_rng(31)
+    base = rng.integers(0, 256, (1080 + 8, 1920 + 8), np.uint8)
+    clip = np.stack([base[f : f + 1080, f : f + 1920] for f in range(7)])
+    cfg = pvot_torch.TrackerConfig(search_radius_x=160, search_radius_y=160)
+    assert MegaGeometry((1080, 1920), (160, 160), cfg).plan(4).name == "resident"
+    states = [init_state(gray_u8_to_f32(clip[0])[y : y + 160, x : x + 160], (x, y, 160, 160),
+                         device=cuda_device)
+              for x, y in ((300, 200), (900, 200), (1500, 600), (400, 800))]
+    st = stack_states(states)
+    args = (torch.stack(list(st.bbox), dim=-1), st.template, st.t_mean, st.t_std,
+            st.lost_count, st.use_global)
+    frames = torch.from_numpy(clip[1:]).to(cuda_device)
+    before = (mega_track_chunk_multi.launches_by_plan["resident"],
+              mega_track_chunk.launches_by_plan["resident"])
+    rows, tpl = mega_track_chunk_multi(frames.expand(4, *frames.shape), *args, [6] * 4, cfg)
+    want_rows, want_tpl = mega_track_chunk_multi_reference(frames.expand(4, *frames.shape),
+                                                           *args, [6] * 4, cfg)
+    for lane in (0, 1, 2, 3, O_UPDATED, O_LOST, O_USEG, O_GUSED):
+        np.testing.assert_array_equal(rows[..., lane].cpu().numpy(),
+                                      want_rows[..., lane].cpu().numpy())
+    np.testing.assert_allclose(rows[..., O_SCORE].cpu().numpy(),
+                               want_rows[..., O_SCORE].cpu().numpy(), atol=1e-5 * 4)
+    np.testing.assert_allclose(tpl.cpu().numpy(), want_tpl.cpu().numpy(), atol=1e-6)
+    for s in range(4):
+        k1 = mega_track_chunk(frames, *(a[s] for a in args), 6, cfg)
+        assert torch.equal(k1[0], rows[s]) and torch.equal(k1[1], tpl[s])
+    assert (mega_track_chunk_multi.launches_by_plan["resident"],
+            mega_track_chunk.launches_by_plan["resident"]) == (before[0] + 1, before[1] + 4)

@@ -389,16 +389,47 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# The objects cell's shape (1080p, radius 160, all local): 8 objects of 160 x
+# 160, or a bucket of odd extents that still runs the resident plan (161 x
+# 157 sets the bucket; 157, 64, 27, 31 and 35 columns leave 0, 1, 2, 3 and 4
+# groups of 4 taps past the micro-tile loop's groups of 5).
+CELL_SETS = {
+    "cell-1080p": [(160, 160)] * 8,
+    "bucketed-odd-1080p": [(161, 157), (100, 64), (33, 27), (45, 31), (50, 35)],
+}
+
+
+def _cell_case(name: str):
+    """(frames, rois, config kwargs, start state as numpy) of a CELL_SETS case:
+    a noise scene drifting 1 px a frame, each object cut from frame 0."""
+    rng = np.random.default_rng(17)
+    base = rng.integers(0, 256, (1080 + F, 1920 + F), np.uint8)
+    frames = np.stack([base[f : f + 1080, f : f + 1920] for f in range(F + 1)])
+    g = gray_u8_to_f32(frames[0])
+    spots = [(200 + 420 * (i % 4), 150 + 560 * (i // 4)) for i in range(8)]
+    rois = [(x, y, w, h) for (x, y), (h, w) in zip(spots, CELL_SETS[name])]
+    templs = [g[y : y + h, x : x + w] for x, y, w, h in rois]
+    bucketed = len(set(CELL_SETS[name])) > 1
+    init = init_multi_state_bucketed if bucketed else init_multi_state
+    start = _as_np(init(templs, rois, device="cpu"))
+    return frames, rois, dict(search_radius_x=160, search_radius_y=160), start
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["uniform-global", "bucketed-global"])
+@pytest.mark.parametrize("name", ["uniform-global", "bucketed-global", *CELL_SETS])
 def test_cuda_objects_kernel_matches_plain_and_k1(cases, cuda_device, name):
     """Within the tolerance of the plain version, and each lane bit-equal to
-    K1 on that object alone at its true extent."""
-    frames, _, rois, kw, start, _ = cases[name]
+    K1 on that object alone at its true extent; the cell's shapes run the
+    resident plan."""
+    if name in CELL_SETS:
+        frames, rois, kw, start = _cell_case(name)
+    else:
+        frames, _, rois, kw, start, _ = cases[name]
     cfg = pvot_torch.TrackerConfig(**kw)
     clip = torch.from_numpy(frames[1:]).to(cuda_device)
     args = _chunk_args(start, cuda_device)
     ext = _extents(rois) if name.startswith("bucketed") else None
+    before = mega_track_chunk_objects.launches_by_plan["resident"]
     n_valid = [7] + [F] * (len(rois) - 1)
     rows, tpl = mega_track_chunk_objects(clip, *args, n_valid, cfg, bucket_extents=ext)
     want_rows, want_tpl = mega_track_chunk_objects_reference(clip, *args, n_valid, cfg,
@@ -414,6 +445,8 @@ def test_cuda_objects_kernel_matches_plain_and_k1(cases, cuda_device, name):
         one[1] = one[1][:h, :w].contiguous()
         k1 = mega_track_chunk(clip, *one, n_valid[i], cfg)
         assert torch.equal(k1[0], rows[i]) and torch.equal(k1[1], tpl[i, :h, :w])
+    if name in CELL_SETS:
+        assert mega_track_chunk_objects.launches_by_plan["resident"] == before + 1
 
 
 @pytest.mark.cuda

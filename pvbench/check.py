@@ -1,10 +1,18 @@
 """How `correct` is decided: the program's records and final state against
-the plain reference (pvbench/reference) and the ground truth of the scene.
+the plain reference (pvbench/reference) and the boxes the scene expects.
 
 A run's records are checked in three ways, after the window has closed:
 
-* every tracker-frame's box against the scene's ground truth (`off_truth`),
-  and every tracker-frame handed to the program has a record (`missing`);
+* every tracker-frame's box against the box a correct tracker reports
+  (`off_truth`), and every tracker-frame handed to the program has a record
+  (`missing`).  That box is the scene's (pvbench/traffic/scene.py,
+  `expected`): the target's box on a frame where it is visible; on a frame
+  where the mix's `occlusion` hides it, the box of the last frame where it
+  was visible, which the tracker holds since nothing in a hidden frame
+  passes its gates (NCC of order 1/sqrt(th * tw) against min_confidence and
+  global_confidence); the first visible frame after a hidden interval,
+  longer than the lost threshold, is searched globally and lands on the
+  target exactly;
 * sampled units (calls or chunks, drawn from the seed, always with the first
   unit, the first timed unit and the last) are replayed by the reference,
   frame by frame with its own searches, gates and template updates, from the
@@ -110,7 +118,7 @@ def judge(p: ref.Params, frames_at: Callable, patches: Callable, truth: np.ndarr
           init: List[ref.Lane], records: np.ndarray, units: Sequence[Tuple[int, int]],
           first_timed: int, final, n_units: int, seed: int, missing: int) -> dict:
     """The numbers compared.  frames_at(t) gives frame t's (L, H, W) uint8 on
-    the reference's device; truth (T, L, 4) the ground-truth boxes of the
+    the reference's device; truth (T, L, 4) the boxes the scene expects of the
     recorded frames; records (T, L, 7); units the program's (first frame,
     frames) in order; final the program's final (bbox (L, 4), template (L,
     th, tw), lost (L,), use_global (L,))."""
@@ -142,7 +150,8 @@ def judge(p: ref.Params, frames_at: Callable, patches: Callable, truth: np.ndarr
         + (np.asarray(f_useg) != np.array([ln.use_global for ln in end])).sum()
         + int((f_tpl.to(torch.float32) != want_tpl).sum()))
     info = {"units_replayed": len(picked), "frames_replayed": sum(units[i][1] for i in picked),
-            "reference_off_truth": ref_off, "records": int(records.shape[0] * records.shape[1])}
+            "reference_off_truth": ref_off, "records": int(records.shape[0] * records.shape[1]),
+            "used_global": int((records[..., 6] != 0).sum())}
     return {"numbers": nums, "info": info}
 
 

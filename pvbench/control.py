@@ -26,15 +26,12 @@ import torch  # noqa: E402
 
 from pvbench import harness  # noqa: E402
 from pvbench.reference import programs  # noqa: E402
-from pvbench.reference import tracker as ref  # noqa: E402
 
 
 def reference_program(cell, device, tf32: bool, fault=None):
-    """The reference in the place of the cell's program."""
-    p = ref.Params.from_config(cell.config)
-    if cell.mix["driver"] == "streams_ondevice":
-        return programs.ReferenceStreams(p, tf32=tf32, fault=fault)
-    return programs.ReferenceObjects(p, cell.mix["chunk"], device, tf32=tf32, fault=fault)
+    """The reference in the place of the cell's program: its driver's own."""
+    drv = harness.load_module("drivers", cell.mix["driver"])
+    return drv.reference_program(cell, device, tf32, fault)
 
 
 def main(argv=None) -> int:

@@ -10,10 +10,15 @@ most `in_flight_frames` frames handed and not yet answered (a closed loop):
 it hands the next frame once the serving path has returned enough records.
 A frame's latency runs from its hand-off to the drain of its chunk's records,
 which the `timings=` hook of serve_objects marks.
+
+Besides `Driver`, the module gives the harness the reference in the
+program's place (`reference_program`) and the cell's CPU-size copy
+(`small`).
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 
@@ -22,8 +27,32 @@ import torch
 from torch.profiler import record_function
 
 from pvbench import port
+from pvbench.reference import programs
 from pvbench.reference import tracker as ref
 from pvbench.traffic import scene
+
+
+def reference_program(cell, device: torch.device, tf32: bool, fault=None):
+    """The plain reference in the place of the serving path, in the mix's
+    chunks."""
+    return programs.ReferenceObjects(ref.Params.from_config(cell.config), cell.mix["chunk"],
+                                     device, tf32=tf32, fault=fault)
+
+
+def small(config: dict, mix: dict):
+    """(config, mix) cut down so that the plain versions run the cell on the
+    CPU in a second or two: 2 objects in 96 x 160 frames, 16 x 16 templates,
+    radius 8, a period of 32 in chunks of 4; an occlusion that still sends
+    every object to the global search."""
+    config, mix = copy.deepcopy(config), copy.deepcopy(mix)
+    config.update(frame=[96, 160], template=[16, 16])
+    config["tracker"].update(search_radius_x=8, search_radius_y=8)
+    mix.update(period=32, chunk=4, in_flight_frames=16, grid=[1, 2], amplitude_px=[4, 4],
+               cycles=[1, 1])
+    if "occlusion" in mix:
+        config["tracker"]["lost_frame_threshold"] = 3
+        mix["occlusion"] = {"first": 4, "step": 8, "hidden": 6}
+    return config, mix
 
 
 class PortObjects:

@@ -8,10 +8,15 @@ tracks one segment of `segment` frames of all S streams, a view of the clips
 the next call starts when the last one has returned its records to the host
 (a closed loop).  Each tracker-frame's latency is its call's: from the
 segment handed to the port to the records readable on the host.
+
+Besides `Driver`, the module gives the harness the reference in the
+program's place (`reference_program`) and the cell's CPU-size copy
+(`small`).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -19,8 +24,30 @@ import torch
 from torch.profiler import record_function
 
 from pvbench import port
+from pvbench.reference import programs
 from pvbench.reference import tracker as ref
 from pvbench.traffic import scene
+
+
+def reference_program(cell, device: torch.device, tf32: bool, fault=None):
+    """The plain reference in the place of the multi-stream chunk driver."""
+    return programs.ReferenceStreams(ref.Params.from_config(cell.config), tf32=tf32,
+                                     fault=fault)
+
+
+def small(config: dict, mix: dict):
+    """(config, mix) cut down so that the plain versions run the cell on the
+    CPU in a second or two: 3 streams of 96 x 128 frames, 16 x 16 templates,
+    radius 8, a period of 32 in segments of 8; an occlusion that still sends
+    every stream to the global search."""
+    config, mix = copy.deepcopy(config), copy.deepcopy(mix)
+    config.update(frame=[96, 128], template=[16, 16])
+    config["tracker"].update(search_radius_x=8, search_radius_y=8)
+    mix.update(streams=3, period=32, segment=8, phase_step=10, amplitude_px=[10, 5])
+    if "occlusion" in mix:
+        config["tracker"]["lost_frame_threshold"] = 3
+        mix["occlusion"] = {"first": 4, "step": 8, "hidden": 6}
+    return config, mix
 
 
 class PortStreams:

@@ -2,6 +2,8 @@
 the CPU (the port's plain versions), and the card when there is one."""
 
 import copy
+import hashlib
+import os
 
 import pytest
 import torch
@@ -13,22 +15,27 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 def small_cell(name: str) -> harness.Cell:
-    """The cell with its frames, template, radii, lanes and period cut down
-    so that the plain versions run it on the CPU in a second or two; its
-    checks and limits as they are."""
+    """The cell cut down by its driver's `small` (frames, template, radii,
+    lanes, period) so that the plain versions run it on the CPU in a second
+    or two, with 4 units checked; its limits as they are."""
     cell = harness.load_cell(name, BENCH)
-    config, mix, spec = (copy.deepcopy(x) for x in (cell.config, cell.mix, cell.spec))
-    config["tracker"].update(search_radius_x=8, search_radius_y=8)
-    config["template"] = [16, 16]
-    if mix["driver"] == "streams_ondevice":
-        config["frame"] = [96, 128]
-        mix.update(streams=3, period=32, segment=8, phase_step=10, amplitude_px=[10, 5])
-    else:
-        config["frame"] = [96, 160]
-        mix.update(period=32, chunk=4, in_flight_frames=16, grid=[1, 2],
-                   amplitude_px=[4, 4], cycles=[1, 1])
+    config, mix = harness.load_module("drivers", cell.mix["driver"]).small(cell.config,
+                                                                            cell.mix)
+    spec = copy.deepcopy(cell.spec)
     spec["check"]["units"] = 4
     return harness.Cell(name, cell.entry, spec, config, mix)
+
+
+def digest(root) -> dict:
+    """sha256 of every file under root (bytecode caches aside), by path."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if "__pycache__" not in dirpath:
+                p = os.path.join(dirpath, f)
+                with open(p, "rb") as fh:
+                    out[os.path.relpath(p, root)] = hashlib.sha256(fh.read()).hexdigest()
+    return out
 
 
 @pytest.fixture

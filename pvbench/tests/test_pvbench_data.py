@@ -1,7 +1,6 @@
 """The harness finds everything by name, from data alone, and BENCHMARK.json
 keeps to the benchmark's contract."""
 
-import hashlib
 import json
 import os
 import re
@@ -13,7 +12,7 @@ import textwrap
 import pytest
 
 from pvbench import harness
-from pvbench.tests.conftest import BENCH, CELLS
+from pvbench.tests.conftest import BENCH, CELLS, digest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -58,23 +57,13 @@ def test_cell_found_by_name(cell):
             assert getattr(reader, "MOVES", None) == m.get("moves")
 
 
-def _digest(root):
-    out = {}
-    for dirpath, _, files in os.walk(root):
-        for f in files:
-            if "__pycache__" not in dirpath:
-                p = os.path.join(dirpath, f)
-                out[os.path.relpath(p, root)] = hashlib.sha256(open(p, "rb").read()).hexdigest()
-    return out
-
-
 def test_new_cell_config_and_metric_are_new_files(tmp_path):
     """A configuration, a traffic mix, a cell and a metric added as new files
     and BENCHMARK.json entries run through the harness with no file of the
     benchmark edited."""
     shutil.copytree(harness.HERE, tmp_path / "pvbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    before = _digest(tmp_path / "pvbench")
+    before = digest(tmp_path / "pvbench")
     bench = json.loads(json.dumps(BENCH))
     config = harness.load_json(harness.HERE / "configs" / "uav123-720p-t80-r60.json")
     config.update(name="tiny-96p-t16-r8", frame=[96, 128], template=[16, 16])
@@ -121,5 +110,5 @@ def test_new_cell_config_and_metric_are_new_files(tmp_path):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["correct"]
     assert out["metrics"] == ["frames_done", "result_latency_p95_ms", "setup_s", "track_fps"]
-    after = _digest(tmp_path / "pvbench")
+    after = digest(tmp_path / "pvbench")
     assert {k: v for k, v in after.items() if k in before} == before

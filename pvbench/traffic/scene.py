@@ -11,6 +11,12 @@ seed asks for the same work; the seed draws the textures, the background and
 the noise.  A clip's `phase` shifts its targets along their paths: streams of
 one mix start at different points of the path.
 
+A mix may hide its targets: with `"occlusion": {"first": f, "step": s,
+"hidden": n}`, clip `index` leaves its targets out of clip frames
+[f + index * s, f + index * s + n), so only the background and the sensor
+noise show there.  The clip draws the same random numbers either way: its
+visible frames are the unoccluded clip's bit for bit.
+
 Everything is made with a torch.Generator on the clip's device, in blocks of
 frames; the boxes are computed on the host in float64 and are exact.
 """
@@ -78,14 +84,49 @@ def boxes(config: dict, mix: dict, phase: int = 0) -> np.ndarray:
     return out
 
 
+def hidden(config: dict, mix: dict, index: int) -> np.ndarray:
+    """(period,) bool: the clip frames on which clip `index` hides its
+    targets.  Raises where the box a tracker must report there is not
+    defined: an interval that reaches the clip's last frame (every tracker
+    starts on it), or one that does not outlast the lost threshold (the
+    first visible frame after it must be searched globally)."""
+    period = mix["period"]
+    out = np.zeros(period, bool)
+    occ = mix.get("occlusion")
+    if occ is None:
+        return out
+    first, n = occ["first"] + index * occ["step"], occ["hidden"]
+    t = config["tracker"]
+    if first < 0 or first + n > period - 1:
+        raise ValueError(f"clip {index} hides frames {first}-{first + n - 1}, outside "
+                         f"frames 0-{period - 2} of its period")
+    if n <= t["lost_frame_threshold"] or not t["enable_global_search"]:
+        raise ValueError("a hidden interval must outlast lost_frame_threshold, with the "
+                         "global search on")
+    out[first : first + n] = True
+    return out
+
+
+def expected(paths: np.ndarray, hide: np.ndarray) -> np.ndarray:
+    """The boxes (period, K, 4) a correct tracker reports: the path's box on a
+    visible frame; on a hidden frame, nothing in it passes the gates, so the
+    box of the last visible frame before it (the clip loops, and its last
+    frame is always visible)."""
+    t = np.arange(len(hide))
+    last = np.maximum.accumulate(np.where(hide, -1, t))
+    return paths[np.where(last < 0, len(hide) - 1, last)]
+
+
 def make_clip(config: dict, mix: dict, seed: int, index: int, phase: int,
               device: torch.device, out: torch.Tensor = None) -> Tuple[torch.Tensor, np.ndarray]:
     """Clip `index` of a run: (frames (period, H, W) uint8 on `device`, written
-    into `out` when given, and its boxes (period, K, 4))."""
+    into `out` when given, and the boxes (period, K, 4) a correct tracker
+    reports, `expected`)."""
     (h, w), (th, tw) = config["frame"], config["template"]
     period = mix["period"]
-    truth = boxes(config, mix, phase)
-    n_k = truth.shape[1]
+    paths = boxes(config, mix, phase)
+    hide = hidden(config, mix, index)
+    n_k = paths.shape[1]
     g = torch.Generator(device=device)
     g.manual_seed(clip_seed(seed, index))
     textures = torch.randint(0, 256, (n_k, th, tw), generator=g, device=device).to(torch.float32)
@@ -100,12 +141,13 @@ def make_clip(config: dict, mix: dict, seed: int, index: int, phase: int,
     for f0 in range(0, period, _BLOCK):
         n = min(_BLOCK, period - f0)
         block = background.expand(n, h, w).clone()
-        sel = torch.arange(n, device=device)[:, None, None]
+        shown = np.flatnonzero(~hide[f0 : f0 + n])  # the block's frames with targets
+        sel = torch.as_tensor(shown, device=device)[:, None, None]
         for k in range(n_k):
-            xy = torch.as_tensor(truth[f0 : f0 + n, k, :2], device=device)
+            xy = torch.as_tensor(paths[f0 + shown, k, :2], device=device)
             ys = xy[:, 1, None, None] + dy[None, :, None]
             xs = xy[:, 0, None, None] + dx[None, None, :]
             block[sel, ys, xs] = textures[k]
         block += float(mix["noise_std"]) * torch.randn((n, h, w), generator=g, device=device)
         frames[f0 : f0 + n] = block.clamp_(0, 255).round_().to(torch.uint8)
-    return frames, truth
+    return frames, expected(paths, hide)

@@ -3,7 +3,8 @@
 // scored frame steps, the helpers it needs and the host-side launch setup.
 // Each translation unit that includes this header instantiates its own
 // kernels (an anonymous namespace): ncc_mega.cu only the production stage,
-// kFull, and mega_breakdown.cu the ladder's stages of K1's main-path case.
+// kFull, mega_clock.cu K2's clocked twins (chunk_kernel_clocked) and
+// mega_breakdown.cu the ladder's stages of K1's main-path case.
 // The design and the numerics are described at the top of ncc_mega.cu.
 //
 // Stages (kStage, the rung ladder of tools/mega_breakdown.py on the card).
@@ -250,6 +251,12 @@ struct Buffers {
   int32_t* lane_count;    // n_lanes arrivals at the fold (zeroed at launch)
   unsigned int* barrier;  // grid-barrier arrivals (zeroed at launch)
   unsigned int* tpl_step;  // K1: 1 + the last step whose next template is written (zeroed)
+  // The step clock (read by the kClock kernels only): n_steps + 1 stamps of
+  // %globaltimer (ns) by block 0's thread 0, one before step 0 and one as it
+  // leaves each step's grid barrier, so that stamps k and k + 1 enclose step
+  // k, the scoring of frame k * batch + batch - 1 (and the commit of the
+  // frame before it).
+  unsigned long long* clock;
 };
 
 // Buffer [i] of a pair in the kernel's parameters, without indexing the
@@ -477,13 +484,23 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// A stamp of the step clock (Buffers::clock): the card's %globaltimer, ns.
+__device__ __forceinline__ void clock_stamp(unsigned long long* slot) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  *slot = now;
+}
+
 // Every block of the grid waits here until all have arrived (barrier
 // `index`, counting from 0; the launch zeroed the counter): a release add
 // and an acquire spin, so every block's writes before it are visible to
 // every block's reads after it.  The cooperative launch makes every block
 // resident, so the spin ends; one that has not ended after
-// kBarrierTimeoutNs traps.
-__device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int index) {
+// kBarrierTimeoutNs traps.  kClock: block 0's thread 0 also stamps the step
+// clock into *stamp once every block has arrived (clock_stamp).
+template <bool kClock = false>
+__device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int index,
+                                             unsigned long long* stamp = nullptr) {
   __syncthreads();
   if (threadIdx.x == 0) {
     const unsigned int target = (index + 1) * gridDim.x;
@@ -501,6 +518,9 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int i
         asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
         if (now - t0 > kBarrierTimeoutNs) __trap();
       }
+    }
+    if constexpr (kClock) {
+      if (blockIdx.x == 0) clock_stamp(stamp);
     }
   }
   __syncthreads();
@@ -1108,7 +1128,8 @@ __device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Exten
 //   (4) the partials: a block publishes its best for each lane it scored;
 //       for K2 and K3 the last of them to arrive (a counter a lane) folds the
 //       lane's partials into its winner;
-//   (5) the grid barrier.
+//   (5) the grid barrier; with kClock, block 0 stamps the step clock's
+//       slot k + 1 in it (slot 0 before step 0).
 // After the last step, a step k = n_steps runs (1) and (2) only: the last
 // frame's commit and the records after the last scored frame.
 //
@@ -1122,8 +1143,9 @@ __device__ LaneWork lane_work(const Ints& s, const Params& p, int t, const Exten
 // passes of row_mma (the template rows and, after the box sums, the window
 // rows held as hi/lo slots in the float32 rows' bytes: one shared-memory
 // plan for every tier).  kStage: the ladder's stage (the header comment).
+// kClock: the step clock (Buffers::clock), in K2's clocked twins only.
 template <bool kWhole, bool kOne, bool kExt, int kPasses, int kStage = kFull,
-          bool kResident = false>
+          bool kResident = false, bool kClock = false>
 __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
   static_assert(!kResident || (!kWhole && kPasses == 0), "the resident plan is float32 rows");
   static_assert(kStage == kFull || (kOne && !kExt && (kWhole || kPasses == 0)),
@@ -1162,6 +1184,9 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
 
   int prev_serving = 0;      // K1: the blocks that scored the previous step
   bool tpl_on_way = false;   // K1: this step's whole template is on its way to s_tc
+  if constexpr (kClock) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) clock_stamp(b.clock);
+  }
   for (int k = 0;; ++k) {
     const int t = k * p.batch + p.batch - 1;     // this step's frame
     const int tc = t - p.batch;                  // the frame the table commits (k >= 1)
@@ -1968,7 +1993,7 @@ __device__ __forceinline__ void chunk_body(const Buffers& b, const Params& p) {
     }
 
     // (5)
-    grid_barrier(b.barrier, static_cast<unsigned int>(k));
+    grid_barrier<kClock>(b.barrier, static_cast<unsigned int>(k), b.clock + k + 1);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -2003,6 +2028,16 @@ template <bool kWhole, bool kOne, bool kExt, int kPasses, int kStage = kFull>
 __global__ void __launch_bounds__(kThreads, kWhole ? 2 : 1)
 chunk_kernel_tier(const Buffers b, const Params p) {
   chunk_body<kWhole, kOne, kExt, kPasses, kStage>(b, p);
+}
+
+// K2's kernels with the step clock compiled in (kClock): the twin of the
+// many-lane kernel above for the same plan and tier, with its launch bounds,
+// which a launch runs where it asks for the clock, so that the kernels
+// above carry none of the clock's code.  mega_clock.cu instantiates them.
+template <bool kWhole, bool kResident, int kPasses>
+__global__ void __launch_bounds__(kThreads, kWhole ? 2 : 1)
+chunk_kernel_clocked(const Buffers b, const Params p) {
+  chunk_body<kWhole, false, false, kPasses, kFull, kResident, true>(b, p);
 }
 
 using ChunkKernel = void (*)(const Buffers, const Params);
@@ -2084,12 +2119,14 @@ int blocks_per_sm(ChunkKernel kernel, int smem) {
 // plan_smem_bytes) on `stream` (every block resident, or the launch is
 // refused: cudaErrorCooperativeLaunchTooLarge).  `work` holds
 // workspace_layout(n_lanes, n_blocks).total bytes; state_i2, state_f2 and
-// tpl2 are the second buffers of the state and the template.  Returns the
-// first CUDA error, or 0.
+// tpl2 are the second buffers of the state and the template; clock is null
+// or the step clock's n_steps + 1 slots (Buffers::clock).  Returns the first
+// CUDA error, or 0.
 int launch_chunk_kernel(ChunkKernel kernel, const Params& p, int smem, int n_blocks,
                         const uint8_t* frames, int32_t* state_i, float* state_f, float* tpl,
                         int32_t* state_i2, float* state_f2, float* tpl2, void* work,
-                        float* rows, cudaStream_t stream) {
+                        float* rows, cudaStream_t stream,
+                        unsigned long long* clock = nullptr) {
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Workspace ws = workspace_layout(p.n_lanes, n_blocks);
@@ -2113,6 +2150,7 @@ int launch_chunk_kernel(ChunkKernel kernel, const Params& p, int smem, int n_blo
   b.part_yx[0] = reinterpret_cast<int32_t*>(base + ws.part_yx);
   b.part_yx[1] = b.part_yx[0] + 2 * p.n_lanes * n_blocks;
   b.split_part = reinterpret_cast<float*>(base + ws.split_part);
+  b.clock = clock;
   err = cudaMemsetAsync(base, 0, ws.counters, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&b, const_cast<Params*>(&p)};

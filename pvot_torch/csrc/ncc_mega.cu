@@ -141,9 +141,13 @@
 //
 // Layout.  The persistent kernel and its helpers are in mega_body.cuh, which
 // the rung ladder (mega_breakdown.cu) shares; this file instantiates their
-// production stage (kFull) for K1-K3 and holds the C entries.
+// production stage (kFull) for K1-K3 and holds the C entries, and
+// mega_clock.cu K2's clocked twins.
 
 #include "mega_body.cuh"
+
+// K2's clocked twins (mega_clock.cu).
+extern "C" void* pvot_mega_clocked_kernel(int plan, int passes);
 
 namespace {
 
@@ -188,27 +192,35 @@ ChunkKernel chunk_kernel_for(int plan, bool one, bool ext, int passes) {
 // One chunk of n_frames over n_lanes lanes on `stream`, at the score tier
 // `passes` (0: float32) and the cadence `batch`: one cooperative launch of
 // n_blocks blocks, whatever the batch.  ext: per-lane (th_k, tw_k) inside
-// the th x tw template buffer, or null.
+// the th x tw template buffer, or null.  clock: the step clock's slots
+// (Buffers::clock), or null; with slots, the launch runs the many-lane
+// kernel's clocked twin (mega_clock.cu), so it needs two lanes or more and
+// no extent table.
 int launch_chunk(const uint8_t* frames, long long frame_stride, int n_lanes, int n_frames,
                  int frame_h, int frame_w, int th, int tw, const int32_t* ext,
                  int32_t* state_i, float* state_f, float* tpl, int32_t* state_i2,
                  float* state_f2, float* tpl2, void* work, int n_blocks, float* rows,
                  int radius_x, int radius_y, int lost_threshold, int enable_global,
                  float min_conf, float global_conf, float strong_conf, float lr,
-                 float one_minus_lr, int passes, int batch, cudaStream_t stream) {
+                 float one_minus_lr, int passes, int batch, cudaStream_t stream,
+                 unsigned long long* clock) {
   const Params p = make_params(frame_stride, n_lanes, n_frames, batch, frame_h, frame_w, th, tw,
                                ext, n_blocks, radius_x, radius_y, lost_threshold, enable_global,
                                min_conf, global_conf, strong_conf, lr, one_minus_lr);
   const int plan = plan_of(th, tw, n_lanes, passes);
   // A one-lane launch runs the kOne instantiation, which takes the launch's
   // extent: an extent table needs two lanes or more.
-  const ChunkKernel kernel = chunk_kernel_for(plan, n_lanes == 1, ext != nullptr, passes);
+  const ChunkKernel kernel =
+      clock == nullptr ? chunk_kernel_for(plan, n_lanes == 1, ext != nullptr, passes)
+                       : reinterpret_cast<ChunkKernel>(pvot_mega_clocked_kernel(plan, passes));
   if (plan < 0 || p.out_h < 1 || p.out_w < 1 || n_lanes < 1 || n_blocks < 1 || n_frames < 0 ||
-      (ext != nullptr && n_lanes < 2) || kernel == nullptr || batch < 1) {
+      (ext != nullptr && n_lanes < 2) || kernel == nullptr || batch < 1 ||
+      (clock != nullptr && (n_lanes < 2 || ext != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_chunk_kernel(kernel, p, plan_smem_bytes(plan, th, tw, n_lanes), n_blocks, frames,
-                             state_i, state_f, tpl, state_i2, state_f2, tpl2, work, rows, stream);
+                             state_i, state_f, tpl, state_i2, state_f2, tpl2, work, rows, stream,
+                             clock);
 }
 
 }  // namespace
@@ -238,7 +250,7 @@ int pvot_mega_track_chunk(const uint8_t* frames, int n_frames, int frame_h, int 
                       state_f, tpl, state_i2, state_f2, tpl2, work, n_blocks, rows, radius_x,
                       radius_y, lost_threshold, enable_global, min_conf, global_conf,
                       strong_conf, lr, one_minus_lr, passes, batch,
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // K2: n_lanes streams' chunks, tier, cadence and launch as K1's.  Lane s
@@ -246,7 +258,12 @@ int pvot_mega_track_chunk(const uint8_t* frames, int n_frames, int frame_h, int 
 // slot s of the state buffers (8 ints, 4 floats) and template s (th x
 // round_up4(tw)), and writes rows + 10 * s * n_frames.  The blocks share the
 // union of all lanes' tiles.  work holds pvot_mega_work_bytes(n_lanes,
-// n_blocks) bytes.
+// n_blocks) bytes.  clock: null, or, for two lanes or more, n_frames / batch
+// + 1 slots on the device for the step clock: the launch runs the kernel's
+// clocked twin, whose block 0 stamps %globaltimer (ns) into slot 0 before
+// the first step and into slot k + 1 in step k's grid barrier, so that slots
+// k and k + 1 enclose the scoring of frame k * batch + batch - 1.  With null
+// the kernel has no clock code at all.
 int pvot_mega_track_chunk_multi(const uint8_t* frames, long long frame_stride, int n_lanes,
                                 int n_frames, int frame_h, int frame_w, int th, int tw,
                                 int32_t* state_i, float* state_f, float* tpl,
@@ -254,12 +271,13 @@ int pvot_mega_track_chunk_multi(const uint8_t* frames, long long frame_stride, i
                                 int n_blocks, float* rows, int radius_x, int radius_y,
                                 int lost_threshold, int enable_global, float min_conf,
                                 float global_conf, float strong_conf, float lr,
-                                float one_minus_lr, int passes, int batch, void* stream) {
+                                float one_minus_lr, int passes, int batch, void* stream,
+                                unsigned long long* clock) {
   return launch_chunk(frames, frame_stride, n_lanes, n_frames, frame_h, frame_w, th, tw,
                       nullptr, state_i, state_f, tpl, state_i2, state_f2, tpl2, work, n_blocks,
                       rows, radius_x, radius_y, lost_threshold, enable_global, min_conf,
                       global_conf, strong_conf, lr, one_minus_lr, passes, batch,
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), clock);
 }
 
 // K3: n_objects trackers over ONE clip (frames: n_frames x frame_h x frame_w
@@ -290,7 +308,7 @@ int pvot_mega_track_chunk_objects(const uint8_t* frames, int n_objects, int n_fr
                       state_f, tpl, state_i2, state_f2, tpl2, work, n_blocks, rows, radius_x,
                       radius_y, lost_threshold, enable_global, min_conf, global_conf,
                       strong_conf, lr, one_minus_lr, passes, batch,
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // Bytes of scratch a launch of n_blocks blocks over n_lanes lanes needs.

@@ -41,8 +41,10 @@ SIGNATURES = {
         [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG],
         ctypes.c_int,
     ),
+    # frames, frame_stride, n_lanes, then as pvot_mega_track_chunk from n_frames
+    # to the configuration, then the step clock (or null)
     "pvot_mega_track_chunk_multi": (
-        [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG],
+        [_P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, *_CONFIG, _P],
         ctypes.c_int,
     ),
     "pvot_mega_track_chunk_objects": (

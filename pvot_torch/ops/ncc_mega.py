@@ -449,7 +449,7 @@ def _grid_blocks(lib, dev: torch.device, th: int, tw: int, n_lanes: int, ext: bo
 
 def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std,
             lost_count, use_global, n_valid, config: TrackerConfig, stream, extents=None,
-            passes: int = 0, batch: int = 1, rung=None) -> Launch:
+            passes: int = 0, batch: int = 1, rung=None, clock=None) -> Launch:
     """Run one C entry ("one", "multi" or "objects") on S lanes: frames (S, F,
     H, W) u8, each lane's frames contiguous, lanes `frames.stride(0)` apart (0
     for objects); the states stacked on S, all on frames' device.  extents:
@@ -457,7 +457,8 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
     objects whose extents differ get them as the kernel's extent table.
     passes: the score tier (0 float32, 1-3 bf16 passes); batch: the cadence.
     rung ("one" only): a stage of K1's rung ladder
-    (pvot_torch.tools.mega_breakdown) in place of K1's production kernel."""
+    (pvot_torch.tools.mega_breakdown) in place of K1's production kernel.
+    clock ("multi" only): the step clock's int64 slots, or None."""
     s, f, h, w = frames.shape
     th, tw = template.shape[-2:]
     extents = extents or [(th, tw)] * s
@@ -505,7 +506,8 @@ def _launch(lib, entry: str, frames: torch.Tensor, bbox, template, t_mean, t_std
             *buffers)
     elif entry == "multi":
         err = lib.pvot_mega_track_chunk_multi(frames.data_ptr(), frames.stride(0), s, f, h, w,
-                                              th, tw, *buffers)
+                                              th, tw, *buffers,
+                                              None if clock is None else clock.data_ptr())
     else:
         args = (frames.data_ptr(), f, h, w, th, tw, *buffers)
         err = (lib.pvot_mega_track_chunk(*args) if rung is None
@@ -613,6 +615,7 @@ def mega_track_chunk_multi(
     highest: bool = True,
     score_passes: int = 3,
     batch: int = 1,
+    clock=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Track one chunk of S independent streams: frames (S, F, H, W) uint8
     (each stream's frames contiguous; the stream axis may have any stride),
@@ -624,7 +627,13 @@ def mega_track_chunk_multi(
     (`chunk_launches`), no host synchronisation; the counters of
     `mega_track_chunk_multi` grow as K1's do.  At every frame step each block
     grid-strides over all streams' tiles, so a stream in re-acquisition gets
-    the whole card.  On the CPU: the plain version."""
+    the whole card.  clock: None, or, for S >= 2, F // batch + 1 int64 slots
+    on the frames' device (`timing.clock_buffer`, given only while a
+    profiler session is on): the launch then runs the kernel's clocked twin
+    (csrc/mega_clock.cu), which stamps its step clock into them
+    (`timing.StepClock` says which step each interval holds); with None the
+    kernel has no clock code.  On the CPU: the plain version, which has no
+    clock."""
     with timing.span("pvot.chunk"):
         passes = score_tier(highest, score_passes)
         batch = check_batch(batch)
@@ -642,6 +651,12 @@ def mega_track_chunk_multi(
         th, tw = template.shape[-2:]
         if template.shape[0] != s or bbox.shape != (s, 4):
             raise ValueError(f"states for {template.shape[0]} streams, frames for {s}")
+        if clock is not None and (clock.dtype != torch.int64 or clock.device != frames_u8.device
+                                  or clock.shape != (f // batch + 1,)
+                                  or not clock.is_contiguous() or s < 2):
+            raise ValueError(f"the step clock needs two streams or more and {f // batch + 1} "
+                             f"contiguous int64 slots on {frames_u8.device}, got {s} streams "
+                             f"and {clock.dtype} {tuple(clock.shape)} on {clock.device}")
         plan = MegaGeometry((h, w), (th, tw), config).plan(s, passes).name
         from pvot_torch.ops import _build
 
@@ -651,7 +666,7 @@ def mega_track_chunk_multi(
             out = _launch(
                 lib, "multi", frames_u8, bbox, template, t_mean, t_std, lost_count,
                 use_global, n_valid, config, torch.cuda.current_stream(dev).cuda_stream,
-                passes=passes, batch=batch,
+                passes=passes, batch=batch, clock=clock,
             )
             _build.check(out.err, "mega_track_chunk_multi")
             _count(mega_track_chunk_multi, chunk_launches(f, batch), passes, plan)

@@ -27,6 +27,10 @@ unit, `pvot.track` from the checked inputs to the records; inside it each
 chunk's `pvot.chunk` (ops/ncc_mega.py) and `pvot.restack` (the chunk-final
 state and its template stats), then `pvot.read` (the records' one copy to
 the host, which waits for the card) and `pvot.records` (their conversion).
+While a session is on, `track_streams_mega` also clocks its chunk kernels'
+frame steps on the card (`timing.clock_buffer`): the stamps come to the host
+in the same one copy as the records, and the call keeps one
+`timing.StepClock` a frame step under its unit.
 """
 
 from __future__ import annotations
@@ -160,15 +164,17 @@ def mega_chunk_step_multi(
     highest: bool = True,
     score_passes: int = 3,
     batch: int = 1,
+    clock=None,
 ) -> Tuple[torch.Tensor, TrackerState]:
     """One chunk of S streams (pvot/tracker/mega.py:183): chunk (S, C, H, W)
     uint8 on the states' device, a stacked state, n_valid per stream (S,) or
-    one count for all; tier and cadence as in track_video_mega.  Returns
-    (rows (S, C, 10) on the device, the chunk-final stacked state)."""
+    one count for all; tier and cadence as in track_video_mega; clock: the
+    step clock's slots or None (`mega_track_chunk_multi`).  Returns (rows (S,
+    C, 10) on the device, the chunk-final stacked state)."""
     rows, tplout = mega_track_chunk_multi(
         chunk, torch.stack(list(states.bbox), dim=-1), states.template, states.t_mean,
         states.t_std, states.lost_count, states.use_global, n_valid, config,
-        highest, score_passes, batch,
+        highest, score_passes, batch, clock=clock,
     )
     return rows, _state_from_chunk(rows, tplout)
 
@@ -191,7 +197,12 @@ def track_streams_mega(
 
     `states` is a stacked state (pvot_torch.parallel.multi.init_multi_state).
     Returns (final stacked state on `device`, StepOutput with the (F, S)
-    leading layout), as pvot.tracker.mega.track_streams_mega does."""
+    leading layout), as pvot.tracker.mega.track_streams_mega does.
+
+    While a profiler session is on, each chunk kernel clocks its frame steps
+    (`timing.clock_buffer`); the stamps come in the records' one host read,
+    and the call keeps one `timing.StepClock` a frame step under its unit
+    when every chunk was clocked."""
     score_tier(highest, score_passes)
     batch = check_batch(batch)
     cs = _chunk_length(chunk_size, batch)
@@ -203,20 +214,45 @@ def track_streams_mega(
     s, f = videos.shape[:2]
     if int(states.t_mean.shape[0]) != s:
         raise ValueError(f"{s} videos for {int(states.t_mean.shape[0])} states")
-    with timing.span("pvot.track", unit=timing.new_unit(), frames=f, lanes=s):
+    unit = timing.new_unit()
+    with timing.span("pvot.track", unit=unit, frames=f, lanes=s):
         cur = states.to(device)
-        all_rows = []
+        all_rows, clocks = [], []
         for start in range(0, f, cs):
             chunk = videos[:, start : start + cs]
+            # One stream runs the one-lane kernel, which has no clocked twin.
+            clock = timing.clock_buffer(chunk.shape[1] // batch + 1, device) if s > 1 else None
             rows, cur = mega_chunk_step_multi(chunk, cur, chunk.shape[1], config, highest,
-                                              score_passes, batch)
+                                              score_passes, batch, clock=clock)
             all_rows.append(rows)
+            clocks.append(clock)
         if not all_rows:
             return cur, _rows_to_output(np.zeros((0, s, 10), np.float32))
+        clocked = all(c is not None for c in clocks)
         with timing.span("pvot.read"):
-            host = host_read(torch.cat(all_rows, dim=1)).numpy()  # (S, F, 10)
+            host, stamps = _read_with_clocks(all_rows, [c for c in clocks if c is not None])
         with timing.span("pvot.records"):
-            return cur, _rows_to_output(host.transpose(1, 0, 2))
+            out = _rows_to_output(host.transpose(1, 0, 2))
+            if clocked:
+                th, tw = cur.template.shape[-2:]
+                timing.add_step_clocks(unit, list(zip(range(0, f, cs), stamps)),
+                                       out.used_global, batch, videos.shape[2:], (th, tw),
+                                       (config.search_radius_x, config.search_radius_y))
+            return cur, out
+
+
+def _read_with_clocks(all_rows, clocks):
+    """The chunks' records (S, F_c, 10) float32 and the step clocks' int64
+    stamps (none where no chunk was clocked) in one host read: (records (S,
+    F, 10), each clock's stamps)."""
+    rows = torch.cat(all_rows, dim=1)
+    host = host_read(torch.cat([rows.view(-1), *(c.view(torch.float32) for c in clocks)]))
+    host = host.numpy()
+    stamps, at = [], rows.numel()
+    for c in clocks:  # an int64 stamp is two float32 slots
+        stamps.append(host[at : at + 2 * c.numel()].view(np.int64))
+        at += 2 * c.numel()
+    return host[: rows.numel()].reshape(rows.shape), stamps
 
 
 def bucket_extents(states: TrackerState) -> Optional[Tuple[Tuple[int, int], ...]]:

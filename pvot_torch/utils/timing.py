@@ -13,6 +13,12 @@ while a profiler session is on in the calling thread, each span is a
 `record_function` there (a host event on the profiler's clock, beside the
 device's records) and one `Span` record kept in memory (`spans`).  With no
 session on, a span reads one flag and does nothing else.
+
+The step clock times the multi-stream chunk kernel's frame steps on the card
+itself: while a session is on, `track_streams_mega` asks `clock_buffer` for
+its slots, the kernel stamps them, and the call keeps one `StepClock` record
+a frame step (`step_clocks`).  With no session on, no buffer is made and the
+launch runs the kernel without the clock's code.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ import threading
 import time
 from collections import defaultdict, deque
 from time import perf_counter_ns
-from typing import Dict, Hashable, List, NamedTuple, Optional
+from typing import Dict, Hashable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
@@ -230,3 +237,81 @@ def spans() -> List[Span]:
 def reset_spans() -> None:
     """Forget every span record kept."""
     _kept.clear()
+
+
+class StepClock(NamedTuple):
+    """One frame step of a multi-stream chunk launch, timed on the card by its
+    step clock (csrc/ncc_mega.cu `pvot_mega_track_chunk_multi`).
+
+    Alignment: block 0 stamps the card's %globaltimer once before step 0 and
+    once in each step's grid barrier, so the interval from stamp k to
+    stamp k + 1 holds step k: at its start the commit of the frame scored in
+    step k - 1 (frame t commits at the start of step t + 1, and its record is
+    written there), then the scoring of the chunk's frame k * batch + batch -
+    1, its local windows or whole maps and their argmax.  Each interval is
+    the frame whose scoring ran in it: `frame` is that frame's index in the
+    call, and `global_lanes` counts the lanes whose record of that frame has
+    used_global set (their argmax ran over the whole map in this interval).
+
+    unit: the call's unit (its `pvot.track` span's); step and steps: the
+    step's index among the call's steps (its chunks' end to end) and their
+    number; launches: the call's chunk launches, so that a reader can match
+    calls to a trace's kernel count; ns: the interval on the card's clock;
+    lanes: the launch's lanes; frame_shape (H, W), templ_shape (th, tw) and
+    radii (rx, ry): the geometry."""
+
+    unit: Optional[Hashable]
+    step: int
+    steps: int
+    launches: int
+    frame: int
+    ns: int
+    global_lanes: int
+    lanes: int
+    frame_shape: Tuple[int, int]
+    templ_shape: Tuple[int, int]
+    radii: Tuple[int, int]
+
+
+CLOCK_CALLS_KEPT = 4_096  # the newest calls whose step-clock records are kept
+# One entry a call: (unit, launches, frames, ns, global lanes, geometry), the
+# arrays a step each; `step_clocks` makes the records, so a clocked call pays for a
+# few array operations and not for a record a step.
+_clocks: deque = deque(maxlen=CLOCK_CALLS_KEPT)
+
+
+def clock_buffer(n_stamps: int, device: torch.device) -> Optional[torch.Tensor]:
+    """n_stamps int64 slots on `device` for a chunk kernel's step clock, while
+    a profiler session is on in this thread (the flag `span` reads) and the
+    device is a CUDA device (only the kernel stamps); else None."""
+    if not _profiler_enabled() or torch.device(device).type != "cuda":
+        return None
+    return torch.empty(n_stamps, dtype=torch.int64, device=device)
+
+
+def add_step_clocks(unit: Optional[Hashable], chunks: Sequence[Tuple[int, np.ndarray]],
+                    used_global: np.ndarray, batch: int, frame_shape, templ_shape,
+                    radii) -> None:
+    """Keep a call's step-clock records, one `StepClock` a frame step (made by
+    `step_clocks`): chunks, each chunk's first frame in the call and its
+    n_steps + 1 stamps as read from the card; used_global (F, L), the call's
+    records' flags; batch, the cadence (step k of a chunk scores its frame k
+    * batch + batch - 1)."""
+    frames = np.concatenate([first + np.arange(len(st) - 1) * batch + batch - 1
+                             for first, st in chunks])
+    ns = np.concatenate([np.diff(st) for _, st in chunks])
+    geometry = (used_global.shape[1], tuple(frame_shape), tuple(templ_shape), tuple(radii))
+    _clocks.append((unit, len(chunks), frames, ns, used_global[frames].sum(axis=1), geometry))
+
+
+def step_clocks() -> List[StepClock]:
+    """The step-clock records kept, oldest first: every step of the newest
+    CLOCK_CALLS_KEPT calls."""
+    return [StepClock(unit, i, len(ns), launches, f, n, g, *geometry)
+            for unit, launches, frames, ns, glob, geometry in list(_clocks)
+            for i, (f, n, g) in enumerate(zip(frames.tolist(), ns.tolist(), glob.tolist()))]
+
+
+def reset_step_clocks() -> None:
+    """Forget every step-clock record kept."""
+    _clocks.clear()
